@@ -1,0 +1,237 @@
+"""The generation funnel: image(s) -> depth -> derived outputs (torch).
+
+Port of ``depthmap_tpu/pipeline/core.py``: a generator yielding
+(input_index, output_type, result) tuples.  Results are numpy arrays where
+the JAX funnel yields PIL images: 'depth' is (H, W) uint16, 'concat_depth'
+and the stereo modes are uint8 RGB.
+
+Ported outputs: depth (plain, inverted, concatenated), depth_prediction and
+stereo with the polylines fills.  Boost, normal map, heatmap, simple mesh,
+background removal and the inpainted mesh raise NotImplementedError naming
+their ROADMAP items.  ``compute_device`` picks the device: "GPU" is CUDA
+(and raises without it), "CPU" is the host.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from depthmap_tpu_torch.ops import numerics
+from depthmap_tpu_torch.ops.stereo import create_stereoimages
+from depthmap_tpu_torch.options import GenerationOptions
+from depthmap_tpu_torch.pipeline.depth import DepthPredictor, resolve_device
+from depthmap_tpu_torch.registry import resolve_model_type
+
+_NOT_PORTED = {
+    "boost": "Queue 1 item 10 (LeReS + Boost)",
+    "gen_normalmap": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
+    "gen_heatmap": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
+    "gen_simple_mesh": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
+    "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
+    "gen_inpainted_mesh": "Queue 1 item 13 (3D photo)",
+}
+
+
+class PredictorCache:
+    """Keeps the last predictor alive across funnel invocations."""
+
+    def __init__(self):
+        self._predictor: Optional[DepthPredictor] = None
+        self._key: Optional[tuple] = None
+
+    def get(self, model_type, tiling_mode: bool = False,
+            **kw) -> DepthPredictor:
+        mt = resolve_model_type(model_type)
+        key = (mt, tiling_mode, tuple(sorted(kw.items())))
+        if self._predictor is None or self._key != key:
+            self._predictor = None   # free the old model first
+            self._predictor = DepthPredictor(mt, tiling_mode=tiling_mode,
+                                             **kw)
+            self._key = key
+        return self._predictor
+
+    def release(self):
+        self._predictor = None
+        self._key = None
+
+
+def ingest_custom_depthmap(dp, target_w: int, target_h: int) -> np.ndarray:
+    """Custom-depthmap ingest of the JAX funnel (restated): a PIL image is
+    resized with LANCZOS; single-channel maps autodetect 8/16/32 bit, RGB
+    maps take channel 0 / 256; arrays must already have the target size."""
+    if hasattr(dp, "getbands"):
+        from PIL import Image
+        if dp.width != target_w or dp.height != target_h:
+            dp = dp.resize((target_w, target_h), Image.Resampling.LANCZOS)
+        if len(dp.getbands()) == 1:
+            out = np.asarray(dp, dtype="float")
+            out_max = out.max()
+            if out_max < 256:
+                bit_depth = 8
+            elif out_max < 65536:
+                bit_depth = 16
+            else:
+                bit_depth = 32
+            out = out / (2.0 ** bit_depth)
+        else:
+            out = np.asarray(dp, dtype="float")[:, :, 0] / 256.0
+        return out
+    out = np.asarray(dp, dtype="float")
+    if out.shape[:2] != (target_h, target_w):
+        raise ValueError(f"custom depthmap shape {out.shape[:2]} != image "
+                         f"shape {(target_h, target_w)}")
+    return out
+
+
+def to_rgb(image) -> np.ndarray:
+    """PIL image or array -> (H, W, 3) uint8 (a writable array: torch
+    refuses to wrap PIL's read-only buffers)."""
+    if hasattr(image, "convert"):
+        if image.mode == "I":
+            image = image.point(lambda p: p * 0.0039063096)
+        return np.array(image.convert("RGB"))
+    arr = np.asarray(image)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    if arr.shape[-1] == 4:
+        arr = arr[..., :3]
+    return arr
+
+
+def _funnel_net_size(inp, w: int, h: int):
+    if inp.net_size_match:
+        return (w + 31) // 32 * 32, (h + 31) // 32 * 32
+    return inp.net_width, inp.net_height
+
+
+def _convert_to_i16_host(out: np.ndarray) -> np.ndarray:
+    """numerics.convert_to_i16 of a host map (the JAX funnel's numpy twin:
+    clip(out, 0, 1) * 65536 + 0.0001 in f64, clipped, truncated)."""
+    x = np.clip(out, 0, 1) * 65536.0 + 0.0001
+    return np.clip(x, 0, 65536.0 - 0.1).astype("uint16")
+
+
+def core_generation_funnel(outpath: Optional[str], inputimages: List,
+                           inputdepthmaps: Optional[List] = None,
+                           inputnames: Optional[List] = None,
+                           inp: Any = None,
+                           ops: Optional[Dict] = None,
+                           predictor_cache: Optional[PredictorCache] = None):
+    """Yields (index, output_type, result)."""
+    if len(inputimages) == 0 or inputimages[0] is None:
+        return
+    if inputdepthmaps is None or len(inputdepthmaps) == 0:
+        inputdepthmaps = [None] * len(inputimages)
+    inputdepthmaps_complete = all(x is not None for x in inputdepthmaps)
+    inp = GenerationOptions.from_dict(inp if inp is not None else {})
+    for opt, item in _NOT_PORTED.items():
+        if getattr(inp, opt):
+            raise NotImplementedError(
+                f"option {opt} is not ported yet: ROADMAP.md {item}")
+    cache = predictor_cache or PredictorCache()
+    ops = ops or {}
+    dev = resolve_device(
+        "cpu" if str(inp.compute_device).upper() == "CPU" else "cuda")
+    predictor_kw: Dict[str, Any] = {"device": dev}
+    if ops.get("no_half"):
+        predictor_kw["compute_dtype"] = "float32"
+
+    predictor = None
+    if not inputdepthmaps_complete:
+        predictor = cache.get(inp.model_type, tiling_mode=inp.tiling_mode,
+                              **predictor_kw)
+
+    # Batched pre-pass: images that share a shape and need no host-side raw
+    # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH.
+    # A failure raises: it does not fall back to the serial loop.
+    fused: Dict[int, np.ndarray] = {}
+    rgb_cache: Dict[int, np.ndarray] = {}
+    if predictor is not None and not inp.do_output_depth_prediction \
+            and len(inputimages) > 1:
+        chunk = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH", "8"))
+        groups: Dict[Tuple[int, int], list] = {}
+        if chunk >= 2:
+            for count, image in enumerate(inputimages):
+                if inputdepthmaps[count] is not None:
+                    continue
+                arr = to_rgb(image)
+                rgb_cache[count] = arr
+                groups.setdefault(arr.shape[:2], []).append((count, arr))
+        for (h, w), members in groups.items():
+            if len(members) < 2:
+                continue
+            nw, nh = _funnel_net_size(inp, w, h)
+            for i in range(0, len(members), chunk):
+                part = members[i:i + chunk]
+                stack = np.stack([m[1] for m in part]).astype(
+                    np.float32) / 255.0
+                maps = predictor.finalized_batch(
+                    stack, nw, nh, clip=inp.clipdepth,
+                    clip_mode=inp.clipdepth_mode,
+                    clip_far=inp.clipdepth_far,
+                    clip_near=inp.clipdepth_near).cpu().numpy()
+                for (idx, _), m16 in zip(part, maps):
+                    fused[idx] = m16
+
+    for count, image in enumerate(inputimages):
+        img = rgb_cache.pop(count, None)
+        if img is None:
+            img = to_rgb(image)
+        h, w = img.shape[:2]
+
+        img_output = None
+        if inputdepthmaps[count] is not None:
+            out = ingest_custom_depthmap(inputdepthmaps[count], w, h)
+            img_output = _convert_to_i16_host(out)
+        elif count in fused:
+            img_output = fused.pop(count)
+        else:
+            net_w, net_h = _funnel_net_size(inp, w, h)
+            img01 = img.astype(np.float32) / 255.0
+            if not inp.do_output_depth_prediction:
+                img_output = predictor.predict_finalized(
+                    img01, net_w, net_h, clip=inp.clipdepth,
+                    clip_mode=inp.clipdepth_mode,
+                    clip_far=inp.clipdepth_far,
+                    clip_near=inp.clipdepth_near)
+            else:
+                raw = predictor.predict(img01, net_w, net_h)
+                invert = predictor.raw_prediction_invert
+                if abs(raw.max() - raw.min()) > np.finfo("float").eps:
+                    yield count, "depth_prediction", -raw if invert else \
+                        np.copy(raw)
+                img_output = numerics.finalize_i16(
+                    torch.from_numpy(raw), invert=invert,
+                    clip=inp.clipdepth, clip_mode=inp.clipdepth_mode,
+                    clip_far=inp.clipdepth_far,
+                    clip_near=inp.clipdepth_near).numpy()
+
+        if inp.do_output_depth:
+            img_depth = img_output
+            if inp.output_depth_invert:
+                img_depth = numerics.invert_i16(
+                    torch.from_numpy(img_output)).numpy()
+            if inp.output_depth_combine:
+                axis = 1 if inp.output_depth_combine_axis == "Horizontal" \
+                    else 0
+                rgb = numerics.convert_i16_to_rgb(
+                    torch.from_numpy(img_depth)).numpy()
+                yield count, "concat_depth", np.concatenate((img, rgb),
+                                                            axis=axis)
+            else:
+                yield count, "depth", img_depth
+
+        if inp.gen_stereo:
+            stereoimages = create_stereoimages(
+                img, img_output, inp.stereo_divergence,
+                inp.stereo_separation, inp.stereo_modes,
+                inp.stereo_balance, inp.stereo_offset_exponent,
+                inp.stereo_fill_algo, device=dev)
+            for c, simg in enumerate(stereoimages):
+                yield count, inp.stereo_modes[c], simg
+
+    if not bool(ops.get("keepmodels", True)):
+        cache.release()

@@ -1,0 +1,151 @@
+"""Kernel K2 (depthmap_tpu_torch/ops/polylines.py) and create_stereoimages.
+
+On the CPU: the plain version is byte-exact against the reference oracle
+(tests/oracles.py stereo_polylines) and the JAX package's host C++ kernel
+(depthmap_tpu.ops.polylines.apply_stereo_divergence_polylines), on the
+cases of tests/test_polylines_pallas.py; create_stereoimages is byte-exact
+against the JAX function for all 8 modes and several balances.  The CUDA
+kernel against the plain version is in tests/test_torch_port_cuda.py.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from depthmap_tpu.ops.polylines import apply_stereo_divergence_polylines
+from depthmap_tpu.ops.stereo import create_stereoimages as j_create
+from depthmap_tpu_torch.ops import polylines as P
+from depthmap_tpu_torch.ops.stereo import STEREO_MODES, create_stereoimages
+from tests.oracles import stereo_polylines
+
+
+def _check(img, nd, divpx, sep, expo, sharp):
+    fill = "polylines_sharp" if sharp else "polylines_soft"
+    nd64 = nd.astype(np.float64)
+    got = P.polylines_rasterize(torch.from_numpy(img), torch.from_numpy(nd),
+                                divpx, sep, expo, sharp).numpy()
+    np.testing.assert_array_equal(
+        got, stereo_polylines(img, nd64, divpx, sep, expo, fill))
+    np.testing.assert_array_equal(
+        got, apply_stereo_divergence_polylines(img, nd64, divpx, sep, expo,
+                                               fill))
+    return got
+
+
+def test_compact_matches_swap_with_last(rng):
+    """The closed-form removal equals the host kernel's loop."""
+    for _ in range(200):
+        n = int(rng.integers(0, 12))
+        cap = 14
+        vals = rng.permutation(50)[:n]
+        alive = rng.random(n) < 0.5
+        ref = list(vals)
+        flags = dict(zip(vals.tolist(), alive.tolist()))
+        i = 0
+        while i < len(ref):
+            if not flags[ref[i]]:
+                ref[i] = ref[-1]
+                ref.pop()
+            else:
+                i += 1
+        act = torch.zeros((1, cap), dtype=torch.int64)
+        act[0, :n] = torch.from_numpy(vals)
+        al = torch.zeros((1, cap), dtype=torch.bool)
+        al[0, :n] = torch.from_numpy(alive)
+        out, m = P._compact(act, al)
+        assert int(m[0]) == len(ref)
+        assert out[0, :len(ref)].tolist() == ref
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("div", [2.5, -2.5])
+def test_random_depth(rng, sharp, div):
+    h, w = 16, 96
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    nd = rng.random((h, w)).astype(np.float32)
+    _check(img, nd, div / 100 * w, 0.0, 1.0, sharp)
+
+
+def test_separation_and_exponent(rng):
+    h, w = 8, 96
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    nd = rng.random((h, w)).astype(np.float32)
+    _check(img, nd, 2.0, 1.5, 2.0, True)
+    _check(img, nd, -2.0, -1.5, 2.0, False)
+
+
+def test_structured_and_flat_depth(rng):
+    h, w = 12, 96
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    nd = (0.5 + 0.5 * np.sin(xx / 7.0) * np.cos(yy / 5.0)).astype(np.float32)
+    _check(img, nd, 2.3, 0.0, 1.0, True)
+    # constant depth: every part ties in closeness, which stresses the
+    # active-list order of the tie-break
+    flat = np.full((h, w), 0.5, np.float32)
+    _check(img, flat, 2.3, 0.0, 1.0, True)
+    _check(img, flat, -4.1, 0.0, 1.0, False)
+
+
+def test_large_divergence_f64_depth(rng):
+    """5% divergence, f64 depth, soft and sharp."""
+    h, w = 6, 80
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    nd = rng.random((h, w))
+    for sharp in (True, False):
+        _check(img, nd, 0.05 * w, 0.0, 1.0, sharp)
+        _check(img, nd, -0.05 * w, 0.7, 0.5, sharp)
+
+
+def test_batched_matches_single(rng):
+    h, w = 6, 96
+    imgs = (rng.random((2, h, w, 3)) * 255).astype(np.uint8)
+    nds = rng.random((2, h, w)).astype(np.float32)
+    batched = P.polylines_rasterize(torch.from_numpy(imgs),
+                                    torch.from_numpy(nds), 2.3, 0.0, 1.0,
+                                    True).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(batched[i],
+                                      _check(imgs[i], nds[i], 2.3, 0.0, 1.0,
+                                             True))
+
+
+def test_divergence_beyond_row_width_rejected():
+    img = torch.zeros((2, 8, 3), dtype=torch.uint8)
+    nd = torch.full((2, 8), 0.5, dtype=torch.float64)
+    with pytest.raises(ValueError, match="row width"):
+        P.polylines_rasterize(img, nd, 6.0, 2.0, 1.0, True)
+
+
+def test_cuda_wrapper_rejects_cpu_tensors(rng):
+    img = torch.zeros((4, 8, 3), dtype=torch.uint8)
+    nd = torch.zeros((4, 8), dtype=torch.float64)
+    before = P.polylines_cuda.launches
+    with pytest.raises(ValueError):
+        P.polylines_cuda(img, nd, 1.0, 0.0, 1.0, True)
+    assert P.polylines_cuda.launches == before
+
+
+@pytest.mark.parametrize("balance", [0.0, 0.4, -1.0, 1.0])
+@pytest.mark.parametrize("fill", ["polylines_sharp", "polylines_soft"])
+def test_create_stereoimages_matches_jax(rng, balance, fill):
+    h, w = 10, 48
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    depth = (rng.random((h, w)) * 65535).astype(np.uint16)
+    modes = list(STEREO_MODES)
+    want = j_create(img, depth, 2.5, 0.3, modes, balance, 1.0, fill)
+    got = create_stereoimages(img, depth, 2.5, 0.3, modes, balance, 1.0,
+                              fill)
+    assert len(got) == len(want) == 8
+    for m, g, wnt in zip(modes, got, want):
+        assert g.dtype == np.uint8, m
+        np.testing.assert_array_equal(g, np.asarray(wnt), err_msg=m)
+
+
+def test_warp_fills_not_ported(rng):
+    img = np.zeros((4, 8, 3), np.uint8)
+    depth = np.arange(32, dtype=np.uint16).reshape(4, 8)
+    for fill in ("none", "naive", "naive_interpolating"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            create_stereoimages(img, depth, 2.5, fill_technique=fill)
