@@ -1,33 +1,45 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the smoke test
+    python3 chip_smoke.py --profile   # and a device-time breakdown
 
 Phases (each prints one line with its numbers; any failure exits non-zero
 and prints no result):
   0. environment: CUDA required; torch / CUDA versions, the card's name
      and power limit from nvidia-smi, whether PIL and cv2 import;
-  1. build: nvcc builds both hand-written kernels from csrc/;
+  1. build: nvcc builds both hand-written kernels from csrc/ (in
+     parallel); ptxas's register / spill report of each kernel; the count
+     of HGMMA (wgmma) instructions in K1's SASS, which must not be 0;
   2. K1 (flash attention) against its plain version at the main path's
-     shapes, bf16 and f32, with and without bias;
-  3. K2 (polylines) against its plain version at 1080x1920, byte-exact;
-  4. main path: dpt_beit_large_512 at full width (24 blocks, 1024 wide,
-     random init from a seed, bf16) through PredictorCache and
-     core_generation_funnel: 4 images of 512x512 (batched pre-pass) and one
-     of 1920x1080 (serial path, inline per-block bias, table resize), with
+     shapes, bf16 (tensor-core body) and f32 (CUDA-core body), with a
+     padded-row bias and without; per case the kernel's time, the plain
+     version's, SDPA's on the same tensors (efficient-attention backend
+     pinned; the port never calls it), the bound and the share of it;
+  3. K2 (polylines) against its plain version at 1080x1920, byte-exact,
+     with its bound;
+  4. main path, MAIN_RUNS timed runs: dpt_beit_large_512 at full width
+     (24 blocks, 1024 wide, random init from a seed, bf16) through
+     PredictorCache and core_generation_funnel: 4 images of 512x512
+     (batched pre-pass) and one of 1920x1080 (serial path, inline
+     per-block bias, table resize), with
      depth, left-right and red-cyan-anaglyph outputs; the kernels' launch
      counts must show the path ran through them;
   5. whole-path numerics: one 512x512 image through the predictor in f32
      on the card (kernels, TF32 off) and on the CPU (plain versions).
+With --profile, torch.profiler over one warm funnel run per path gives
+each path's device time and K1's / K2's share of it.
 The last lines: the card's name and power limit, a JSON line with each
 kernel's numbers, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # K1 bounds against the plain version (max abs error).  f32: the bound the
 # JAX package holds its TPU kernel to.  bf16: the output is rounded to
@@ -43,6 +55,20 @@ K2_REPLACES = "depthmap_tpu/ops/polylines_pallas.py:389"
 # whole-path f32 agreement, card (kernels) vs CPU (plain versions), as a
 # fraction of the CPU map's range
 PATH_RTOL = 1e-3
+# timed runs of the main path (each resets and checks the launch counts),
+# for the spread of its host-clock times
+MAIN_RUNS = 3
+# One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): memory
+# bytes/s, bf16 tensor-core and f32 CUDA-core flop/s
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
+    """(ms, basis): the least time for moving nbytes and doing flops."""
+    mem = nbytes / HBM_BPS * 1e3
+    ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
 def log(phase, **kw):
@@ -97,49 +123,86 @@ def phase_build():
     from depthmap_tpu_torch.ops import flash_attention as fa
     from depthmap_tpu_torch.ops import polylines as pl
     t0 = time.perf_counter()
-    fa._lib()
-    pl._lib()
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
+        libs = list(pool.map(lambda f: f(), (fa._lib, pl._lib)))
     log("1-build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_kernel={k: round(v, 2) for k, v in
                     cuda_build.build_seconds.items()})
+    for name, text in cuda_build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log("1-ptxas", lib=name, info=repr(line.strip()))
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", libs[0]._name],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    hgmma = sass.count("HGMMA")
+    log("1-sass", lib="flash_attention", HGMMA=hgmma)
+    if hgmma == 0:
+        raise AssertionError("no HGMMA instruction in K1's SASS: the bf16 "
+                             "body does not run on the tensor cores")
+
+
+def k1_bound(b, h, n, nk, bias_batch, dtype):
+    """K1's bound: q, k, v, out and the bias's N x Nk entries moved once;
+    4.B.H.N.Nk.D flops."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (b * h * (2 * n + 2 * nk) * 64
+                     + (bias_batch or 0) * h * n * nk)
+    return bound(nbytes, 4.0 * b * h * n * nk * 64, dtype)
 
 
 def phase_k1():
     import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from depthmap_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(1)
-    cases = [  # (name, dtype, B, N, bias batch or None)
+    cases = [  # (name, dtype, B, N, bias batch or None); the first two are
+        # the main path's bf16 calls, f32_b1_n1025_shared the f32 path's of
+        # phase 5; every bias is in the padded-row layout
         ("bf16_b4_n1025_shared", torch.bfloat16, 4, 1025, 1),
-        ("bf16_b2_n1025_shared", torch.bfloat16, 2, 1025, 1),
         ("bf16_b1_n1793_shared", torch.bfloat16, 1, 1793, 1),
+        ("bf16_b2_n1025_shared", torch.bfloat16, 2, 1025, 1),
+        ("bf16_b2_n1025_none", torch.bfloat16, 2, 1025, None),
+        ("f32_b1_n1025_shared", torch.float32, 1, 1025, 1),
         ("f32_b2_n130_batched", torch.float32, 2, 130, 2),
         ("f32_b2_n130_none", torch.float32, 2, 130, None),
         ("f32_b2_n513_batched", torch.float32, 2, 513, 2),
         ("f32_b2_n513_none", torch.float32, 2, 513, None),
     ]
     worst = 0.0
-    timed = None
+    main = None
     for name, dt, b, n, bb in cases:
         def mk(*shape):
             return torch.randn(*shape, generator=g).to("cuda", dt)
         q, k, v = mk(b, 16, n, 64), mk(b, 16, n, 64), mk(b, 16, n, 64)
-        bias = mk(bb, 16, n, n) if bb else None
+        bias = fa.pad_bias_rows(mk(bb, 16, n, n)) if bb else None
         got = fa.flash_attention_cuda(q, k, v, bias)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, bias)
         err = (got.float() - want.float()).abs().max().item()
-        bound = K1_BOUND[str(dt).split(".")[-1]]
+        dts = str(dt).split(".")[-1]
+        tol = K1_BOUND[dts]
         ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 20)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
                            5)
-        log("2-k1", case=name, max_abs_err=f"{err:.3e}", bound=bound,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-        if not err <= bound:
-            raise AssertionError(f"K1 {name}: max abs err {err} > {bound}")
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), 20)
+        bound_ms, basis = k1_bound(b, 16, n, n, bb, dts)
+        log("2-k1", case=name, max_abs_err=f"{err:.3e}", tol=tol,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_us=f"{bound_ms * 1e3:.1f}",
+            bound_by=basis, share_of_bound=f"{bound_ms / ms:.3f}")
+        if not err <= tol:
+            raise AssertionError(f"K1 {name}: max abs err {err} > {tol}")
         worst = max(worst, err)
-        if timed is None:
-            timed = (ms, plain_ms)
-    return worst, timed
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=basis)
+    return worst, main
 
 
 def phase_k2():
@@ -151,6 +214,9 @@ def phase_k2():
     nd = torch.rand((1080, 1920), generator=g, dtype=torch.float64).cuda()
     timed = []
     worst = 0
+    # one eye: the image and the f64 map read once, the eye written once
+    bound_ms, basis = bound(1080 * 1920 * (3 + 8 + 3), 0.0)
+    log("3-k2", bound_us=f"{bound_ms * 1e3:.2f}", bound_by=basis)
     for sharp in (True, False):
         for div in (24.0, -24.0, 48.0, -48.0):
             got = pl.polylines_cuda(img, nd, div, 0.0, 1.0, sharp)
@@ -170,8 +236,9 @@ def phase_k2():
                                      "bytes differ from the plain version")
             if sharp and abs(div) == 24.0:
                 timed.append((ms, plain_ms))
-    return worst, (sum(t[0] for t in timed) / len(timed),
-                   sum(t[1] for t in timed) / len(timed))
+    return worst, dict(ms=sum(t[0] for t in timed) / len(timed),
+                       plain_ms=sum(t[1] for t in timed) / len(timed),
+                       library_ms=None, bound_ms=bound_ms, bound_by=basis)
 
 
 def _test_images(seed: int, shapes):
@@ -187,7 +254,46 @@ def _test_images(seed: int, shapes):
     return out
 
 
-def phase_main_path():
+def profile_paths(cache, inp, images):
+    """torch.profiler over one warm funnel run of each path: device time
+    by kernel, and K1's and K2's share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from depthmap_tpu_torch.pipeline.core import core_generation_funnel
+    for label, imgs in (("512_batched_x4", images[:4]),
+                        ("1080p_serial", images[4:])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in core_generation_funnel(None, imgs, None, None, inp,
+                                            predictor_cache=cache):
+                pass
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+        total = sum(dev.values())
+        if total <= 0:
+            raise AssertionError("the profiler saw no device time")
+        k1 = sum(t for k, t in dev.items() if "flash_fwd" in k)
+        k2 = sum(t for k, t in dev.items() if "polylines_rows" in k)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        log("4-profile", path=label, wall_ms=f"{wall_ms:.2f}",
+            device_ms=f"{total:.2f}", busy=f"{total / wall_ms:.3f}",
+            k1_ms=f"{k1:.2f}", k1_share=f"{k1 / total:.3f}",
+            k2_ms=f"{k2:.2f}", k2_share=f"{k2 / total:.3f}",
+            top=repr([(k[:48], round(t, 3)) for k, t in top]))
+
+
+def phase_main_path(profile: bool = False):
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -215,44 +321,49 @@ def phase_main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_attention_cuda.launches = 0
-    pl.polylines_cuda.launches = 0
-    results = {}
-    t_start = time.perf_counter()
-    t_batched = None
-    for idx, typ, res in core_generation_funnel(None, images, None, None,
-                                                inp, predictor_cache=cache):
-        results[(idx, typ)] = res
-        if idx == 3 and typ == "red-cyan-anaglyph":
-            t_batched = time.perf_counter()
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    k1 = fa.flash_attention_cuda.launches
-    k2 = pl.polylines_cuda.launches
+    for run in range(MAIN_RUNS):
+        fa.flash_attention_cuda.launches = 0
+        pl.polylines_cuda.launches = 0
+        results = {}
+        t_start = time.perf_counter()
+        t_batched = None
+        for idx, typ, res in core_generation_funnel(
+                None, images, None, None, inp, predictor_cache=cache):
+            results[(idx, typ)] = res
+            if idx == 3 and typ == "red-cyan-anaglyph":
+                t_batched = time.perf_counter()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        k1 = fa.flash_attention_cuda.launches
+        k2 = pl.polylines_cuda.launches
 
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        d = results[(i, "depth")]
-        sbs = results[(i, "left-right")]
-        ana = results[(i, "red-cyan-anaglyph")]
-        assert d.dtype == np.uint16 and d.shape == (h, w), (i, d.shape)
-        assert sbs.dtype == np.uint8 and sbs.shape == (h, 2 * w, 3)
-        assert ana.dtype == np.uint8 and ana.shape == (h, w, 3)
-        assert int(d.max()) - int(d.min()) > 0, f"image {i}: constant depth"
-    forwards = 2   # one batched forward of the 4 512^2 images, one 1080p
-    if k1 != blocks * forwards:
-        raise AssertionError(f"K1 launched {k1} times, expected "
-                             f"{blocks} x {forwards}")
-    if k2 != 2 * len(images):
-        raise AssertionError(f"K2 launched {k2} times, expected "
-                             f"{2 * len(images)}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log("4-main", model="dpt_beit_large_512", blocks=blocks, width=width,
-        dtype=str(pred.compute_dtype), build_s=f"{build_s:.2f}",
-        s_per_image_512_batched=f"{(t_batched - t_start) / 4:.4f}",
-        s_per_image_1080p_serial=f"{t_end - t_batched:.4f}",
-        k1_launches=k1, k2_launches=k2,
-        max_memory_allocated_GiB=f"{peak_gib:.3f}")
+        for i, img in enumerate(images):
+            h, w = img.shape[:2]
+            d = results[(i, "depth")]
+            sbs = results[(i, "left-right")]
+            ana = results[(i, "red-cyan-anaglyph")]
+            assert d.dtype == np.uint16 and d.shape == (h, w), (i, d.shape)
+            assert sbs.dtype == np.uint8 and sbs.shape == (h, 2 * w, 3)
+            assert ana.dtype == np.uint8 and ana.shape == (h, w, 3)
+            assert int(d.max()) - int(d.min()) > 0, \
+                f"image {i}: constant depth"
+        forwards = 2   # one batched forward of the 4 512^2 images, one 1080p
+        if k1 != blocks * forwards:
+            raise AssertionError(f"K1 launched {k1} times, expected "
+                                 f"{blocks} x {forwards}")
+        if k2 != 2 * len(images):
+            raise AssertionError(f"K2 launched {k2} times, expected "
+                                 f"{2 * len(images)}")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log("4-main", run=run, model="dpt_beit_large_512", blocks=blocks,
+            width=width, dtype=str(pred.compute_dtype),
+            build_s=f"{build_s:.2f}",
+            s_per_image_512_batched=f"{(t_batched - t_start) / 4:.4f}",
+            s_per_image_1080p_serial=f"{t_end - t_batched:.4f}",
+            k1_launches=k1, k2_launches=k2,
+            max_memory_allocated_GiB=f"{peak_gib:.3f}")
+    if profile:
+        profile_paths(cache, inp, images)
     cache.release()
     del pred
     torch.cuda.empty_cache()
@@ -296,19 +407,24 @@ def phase_numerics():
 def main() -> int:
     smi = phase_environment()
     phase_build()
-    k1_err, (k1_ms, k1_plain_ms) = phase_k1()
-    k2_err, (k2_ms, k2_plain_ms) = phase_k2()
-    k1_launches, k2_launches = phase_main_path()
+    k1_err, k1 = phase_k1()
+    k2_err, k2 = phase_k2()
+    k1_launches, k2_launches = phase_main_path("--profile" in sys.argv[1:])
     phase_numerics()
     import torch
+
+    def row(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_us": t["bound_ms"] * 1e3, "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": "flash_attention", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "polylines", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        row("flash_attention", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
+            k1),
+        row("polylines", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,16 +12,18 @@ from typing import Optional
 
 import torch
 
-from depthmap_tpu_torch.ops.flash_attention import flash_attention
+from depthmap_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    pad_bias_rows)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               scale: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: (B, H, N, D); bias broadcastable as (1|B, H, N, Nk) or
-    (H, N, Nk).  The bias rides in q's dtype, as the JAX package hoists it
-    in the compute dtype."""
+    """q, k, v: (B, H, N, D); bias (1|B, H, N, Nk) or (H, N, Nk), passed
+    as it is (the BEiT bias arrives in q's dtype and K1's padded-row
+    layout, as the JAX package hoists it in the compute dtype); a bias in
+    another dtype is cast into a padded-row copy."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if bias is not None:
-        bias = bias.to(q.dtype).contiguous()
+    if bias is not None and bias.dtype != q.dtype:
+        bias = pad_bias_rows(bias, q.dtype)
     return flash_attention(q, k, v, bias=bias, scale=scale)

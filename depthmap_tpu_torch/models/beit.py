@@ -14,33 +14,42 @@ import torch
 import torch.nn as nn
 
 from depthmap_tpu_torch.models.transformer import Block, PatchEmbed
+from depthmap_tpu_torch.ops.flash_attention import bias_row_len
 from depthmap_tpu_torch.ops.resize import interpolate
 
 
-def gen_relative_position_index(wh: int, ww: int,
-                                device=None) -> torch.Tensor:
-    """(wh*ww+1, wh*ww+1) int64 index into the bias table, built on
-    ``device`` (a host-built index would cross to the card on every
-    forward of the inline-bias path)."""
+def gen_relative_position_index(wh: int, ww: int, device=None,
+                                ld: Optional[int] = None) -> torch.Tensor:
+    """(wh*ww+1, ld) int64 index into the bias table (``ld`` defaults to
+    wh*ww+1; columns past it index entry 0), built on ``device`` (a
+    host-built index would cross to the card on every forward of the
+    inline-bias path)."""
     num_rel = (2 * wh - 1) * (2 * ww - 1)
     rows = torch.arange(wh, device=device).repeat_interleave(ww)
     cols = torch.arange(ww, device=device).repeat(wh)
     n = wh * ww
-    index = torch.empty((n + 1, n + 1), dtype=torch.int64, device=device)
-    index[1:, 1:] = ((rows[:, None] - rows[None, :] + wh - 1) * (2 * ww - 1)
-                     + cols[:, None] - cols[None, :] + ww - 1)
+    ld = n + 1 if ld is None else ld
+    index = torch.empty((n + 1, ld), dtype=torch.int64, device=device)
+    index[1:, 1:n + 1] = ((rows[:, None] - rows[None, :] + wh - 1)
+                          * (2 * ww - 1) + cols[:, None] - cols[None, :]
+                          + ww - 1)
     # timm layout: token-token in [0, num_rel); cls->token = num_rel;
     # token->cls = num_rel+1; cls->cls = num_rel+2
-    index[0, :] = num_rel
+    index[0, :n + 1] = num_rel
     index[:, 0] = num_rel + 1
     index[0, 0] = num_rel + 2
+    index[:, n + 1:] = 0
     return index
 
 
 def rel_pos_bias(table: torch.Tensor, train_window: Tuple[int, int],
-                 window: Tuple[int, int]) -> torch.Tensor:
+                 window: Tuple[int, int],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(num_rel + 3, H) table at train_window -> (1, H, N, N) bias for
-    ``window`` (N = wh*ww + 1), in the table's dtype and on its device."""
+    ``window`` (N = wh*ww + 1), in ``dtype`` (default: the table's) and on
+    the table's device.  The bias is the ``[..., :N]`` view of a
+    (1, H, N, bias_row_len(N)) buffer: the padded-row layout kernel K1
+    reads with no copy."""
     twh, tww = train_window
     wh, ww = window
     nh = table.shape[1]
@@ -54,11 +63,16 @@ def rel_pos_bias(table: torch.Tensor, train_window: Tuple[int, int],
                           "bilinear", False)
         sub = sub[0].permute(1, 2, 0).reshape(new_h * new_w, nh)
         table = torch.cat([sub, table[old_num - 3:]], 0)
-    idx = gen_relative_position_index(wh, ww, table.device)
+    if dtype is not None:
+        # cast the table, not the bias: a cast of the padded view would
+        # return a dense copy (a gather is exact, so the values agree)
+        table = table.to(dtype)
     n = wh * ww + 1
-    # gather straight into the (H, N, N) layout the kernel reads
+    ld = bias_row_len(n)
+    idx = gen_relative_position_index(wh, ww, table.device, ld)
+    # gather straight into the padded (H, N, ld) layout the kernel reads
     bias = table.t().contiguous().index_select(1, idx.view(-1))
-    return bias.view(1, nh, n, n)
+    return bias.view(1, nh, n, ld)[..., :n]
 
 
 class BeitModel(nn.Module):
@@ -100,9 +114,10 @@ class BeitBackbone(nn.Module):
     def num_heads(self) -> int:
         return self.model.num_heads
 
-    def block_bias(self, i: int, window: Tuple[int, int]) -> torch.Tensor:
+    def block_bias(self, i: int, window: Tuple[int, int],
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         table = self.model.blocks[i].attn.relative_position_bias_table
-        return rel_pos_bias(table, self.model.train_window, window)
+        return rel_pos_bias(table, self.model.train_window, window, dtype)
 
     def forward(self, x, rel_bias: Optional[Sequence[torch.Tensor]] = None):
         """rel_bias: optional ``depth`` precomputed (1, H, N, N) biases
@@ -132,8 +147,5 @@ def precompute_rel_biases(backbone: BeitBackbone, window: Tuple[int, int],
                           ) -> Tuple[torch.Tensor, ...]:
     """All ``depth`` relative-position biases for one window, computed
     once (they depend only on the parameters and the window)."""
-    out = []
-    for i in range(backbone.depth):
-        b = backbone.block_bias(i, window)
-        out.append(b.to(dtype) if dtype is not None else b)
-    return tuple(out)
+    return tuple(backbone.block_bias(i, window, dtype)
+                 for i in range(backbone.depth))

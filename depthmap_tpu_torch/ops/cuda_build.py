@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
 into ``_build/<name>-<hash>.so`` (the hash covers the source and the
-flags), then loaded with ctypes.  Nothing is built at import time: the first
-call of ``load(name)`` compiles, later calls reuse the loaded library.
-PyTorch's headers are not included, so a build takes seconds.
+flags), then loaded with ctypes.  Nothing is built at import time: the
+first call of ``load(name)`` compiles, later calls reuse the loaded
+library.  PyTorch's headers are not included, so a build takes seconds.
+ptxas reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); ``build_logs`` keeps the report of each build this
+process ran.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+build_logs: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -54,6 +59,7 @@ def load(name: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        build_logs[name] = proc.stderr
         os.replace(tmp, out)
     lib = ctypes.CDLL(out)
     build_seconds[name] = time.perf_counter() - t0

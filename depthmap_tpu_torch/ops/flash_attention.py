@@ -5,6 +5,14 @@
 depthmap_tpu/ops/flash_attention.py:168) for CUDA tensors, and runs
 ``flash_attention_plain`` for CPU tensors.  A CUDA tensor the kernel does
 not take raises; nothing falls back to the plain version on the card.
+The kernel has a tensor-core body for bf16 and a CUDA-core body for f32.
+
+The bias layout the kernel reads: rows padded to a multiple of
+``BIAS_ROW_ALIGN`` elements (a 16-byte-aligned row for TMA, and one that
+SDPA's efficient backend also takes without a copy), heads and batch packed
+behind the rows, seen as the ``[..., :Nk]`` view.  ``models/beit.py``
+gathers its bias straight into that layout; ``pad_bias_rows`` copies a
+dense bias into it.
 """
 from __future__ import annotations
 
@@ -17,6 +25,42 @@ from depthmap_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
+BIAS_ROW_ALIGN = 16
+
+
+def bias_row_len(nk: int) -> int:
+    """The padded row length (elements) of a bias with ``nk`` columns."""
+    return -(-nk // BIAS_ROW_ALIGN) * BIAS_ROW_ALIGN
+
+
+def pad_bias_rows(bias: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A copy of ``bias`` (..., N, Nk) in rows padded to
+    ``bias_row_len(Nk)`` elements (pad columns 0), as the ``[..., :Nk]``
+    view, in ``dtype`` (default: the bias's own)."""
+    nk = bias.shape[-1]
+    buf = torch.zeros(*bias.shape[:-1], bias_row_len(nk),
+                      dtype=dtype or bias.dtype, device=bias.device)
+    view = buf[..., :nk]
+    view.copy_(bias)
+    return view
+
+
+def bias_row_stride(bias: torch.Tensor) -> int:
+    """The row stride (elements) of a (1|B, H, N, Nk) bias in the layout
+    the kernel reads; ``ValueError`` on any other layout."""
+    bb, h, n, nk = bias.shape
+    ld = bias.stride(2) if n > 1 else bias_row_len(nk)
+    want = (h * n * ld, n * ld, ld, 1)
+    if ld % BIAS_ROW_ALIGN or ld < nk or any(
+            size > 1 and st != w
+            for size, st, w in zip(bias.shape, bias.stride(), want)):
+        raise ValueError(
+            f"bias of shape {tuple(bias.shape)} and strides "
+            f"{tuple(bias.stride())}: the kernel reads rows padded to a "
+            f"multiple of {BIAS_ROW_ALIGN} elements with heads and batch "
+            "packed behind them (pad_bias_rows makes that layout)")
+    return ld
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], b: int, h: int, n: int,
@@ -38,7 +82,7 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor] = None,
     """The kernel's function in plain torch: scores and both products in
     f32 (a bf16 matmul would round the scores), p rounded to v's dtype
     before p.v, the sum of the unrounded p dividing afterwards, and a row
-    whose sum is 0 giving 0."""
+    whose sum is 0 giving 0.  Takes a dense or a padded-row bias."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, n, _ = q.shape
@@ -58,13 +102,12 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor] = None,
 def _lib():
     lib = cuda_build.load("flash_attention")
     if not getattr(lib, "_typed", False):
-        vp = ctypes.c_void_p
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_forward.argtypes = [
-            vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, vp]
-        lib.flash_attention_forward.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+            ci, vp]
+        lib.flash_attention_forward.restype = ci
+        lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
@@ -72,9 +115,10 @@ def _lib():
 
 def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel.  q: (B, H, N, 64), k/v: (B, H, Nk, 64), bias
-    (1|B, H, N, Nk) or (H, N, Nk); all contiguous, on one CUDA device, in
-    one dtype (float32 or bfloat16)."""
+    """Launch the CUDA kernel.  q: (B, H, N, 64), k/v: (B, H, Nk, 64),
+    contiguous; bias (1|B, H, N, Nk) or (H, N, Nk) in the padded-row layout
+    (``bias_row_stride``); all on one CUDA device, in one dtype (float32
+    or bfloat16)."""
     tensors = [q, k, v] + ([bias] if bias is not None else [])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash_attention_cuda needs CUDA tensors")
@@ -91,9 +135,12 @@ def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
             v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}: the kernel takes D = 64")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs contiguous q, k, v")
     bias = _normalize_bias(bias, b, h, n, nk)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention_cuda needs contiguous inputs")
+    ldb = bias_row_stride(bias) if bias is not None else 0
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention_cuda needs 16-byte-aligned inputs")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -104,7 +151,7 @@ def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             b, h, n, nk, d, bias.shape[0] if bias is not None else 0,
-            float(scale), _DTYPES[q.dtype], stream)
+            ldb, float(scale), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel: "
                            + lib.flash_attention_error_string(err).decode())

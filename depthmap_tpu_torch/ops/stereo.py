@@ -11,6 +11,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.ops.polylines import polylines_rasterize
 
 STEREO_MODES = ("left-right", "right-left", "top-bottom", "bottom-top",
@@ -63,7 +64,8 @@ def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
                         fill_technique="polylines_sharp",
                         device=None) -> List[np.ndarray]:
     """Returns uint8 numpy arrays, one per mode.  ``device`` defaults to
-    the depth map's device when it is a tensor, else the CPU."""
+    the depth map's device when it is a tensor, else to the card ("cuda",
+    which raises without CUDA); the CPU runs only when asked for."""
     if modes is None:
         modes = ["left-right"]
     if not isinstance(modes, (list, tuple)):
@@ -72,7 +74,8 @@ def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
         return []
     if device is None:
         device = depthmap.device if isinstance(depthmap, torch.Tensor) \
-            else torch.device("cpu")
+            else "cuda"
+    device = resolve_device(device)
     image = torch.as_tensor(np.asarray(original_image), device=device)
     depth = torch.as_tensor(np.asarray(depthmap) if not isinstance(
         depthmap, torch.Tensor) else depthmap, device=device)

@@ -19,10 +19,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.ops import numerics
 from depthmap_tpu_torch.ops.stereo import create_stereoimages
 from depthmap_tpu_torch.options import GenerationOptions
-from depthmap_tpu_torch.pipeline.depth import DepthPredictor, resolve_device
+from depthmap_tpu_torch.pipeline.depth import DepthPredictor
 from depthmap_tpu_torch.registry import resolve_model_type
 
 _NOT_PORTED = {

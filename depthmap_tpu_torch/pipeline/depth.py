@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.models.build import ModelBundle, build_model
 from depthmap_tpu_torch.ops import numerics
 from depthmap_tpu_torch.ops.resize import interpolate
@@ -28,14 +29,6 @@ BF16_MODEL_TYPES = frozenset({1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13, 14})
 # All `depth` hoisted rel-pos biases stay resident below this many bytes;
 # above it each block builds its bias inline (one resident at a time).
 BIAS_HOIST_CAP = 2 << 30
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"compute device {device!r} requested but CUDA "
-                           "is not available")
-    return dev
 
 
 def set_fp32_precision(dev: torch.device) -> None:

@@ -110,3 +110,56 @@ def test_cuda_wrapper_rejects_cpu_tensors(rng):
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, n=16, d=64))
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("n,nk,bias_batch", [(130, 130, 1), (100, 100, 2),
+                                             (33, 70, 1), (1, 1, 1)])
+def test_plain_padded_bias_matches_dense_and_jax(rng, n, nk, bias_batch):
+    """A bias in K1's padded-row layout (the [..., :Nk] view of rows padded
+    to 16 elements) gives the dense result and the JAX one."""
+    q, k, v = _qkv(rng, b=2, n=n, nk=nk, d=64)
+    bias = rng.normal(size=(bias_batch, 2, n, nk)).astype(np.float32)
+    padded = fa.pad_bias_rows(torch.from_numpy(bias))
+    assert padded.stride(2) % 16 == 0 and padded.stride(2) >= nk
+    assert fa.bias_row_stride(padded) == padded.stride(2)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = fa.flash_attention_plain(*t, bias=padded).numpy()
+    np.testing.assert_array_equal(got, _plain(q, k, v, bias))
+    for want in _jax_both(q, k, v, bias):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_layout_check(dtype):
+    """The wrapper's layout check: a dense N = 1025 bias (rows of 2050 or
+    4100 bytes) raises, its pad_bias_rows copy passes with the padded row
+    stride, and so does a dense bias whose rows are already a multiple of
+    16 elements."""
+    dense = torch.zeros(1, 2, 1025, 1025, dtype=dtype)
+    with pytest.raises(ValueError, match="padded"):
+        fa.bias_row_stride(dense)
+    assert fa.bias_row_stride(fa.pad_bias_rows(dense)) == 1040
+    assert fa.bias_row_stride(torch.zeros(2, 2, 64, 64, dtype=dtype)) == 64
+    with pytest.raises(ValueError):   # every other head: not packed
+        fa.bias_row_stride(
+            fa.pad_bias_rows(torch.zeros(1, 4, 64, 70, dtype=dtype))[:, ::2])
+    with pytest.raises(ValueError):
+        fa.bias_row_stride(fa.pad_bias_rows(
+            torch.zeros(1, 2, 64, 64, dtype=dtype)).transpose(2, 3))
+
+
+def test_attention_casts_bias_into_padded_layout(rng):
+    """attention() passes a bias in q's dtype through as it is, and casts
+    one in another dtype into a padded-row copy."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, n=40, d=64))
+    bias = torch.from_numpy(rng.normal(size=(1, 2, 40, 40)).astype(
+        np.float32))
+    got = attention(q, k, v, bias=bias)
+    want = fa.flash_attention_plain(q, k, v,
+                                    fa.pad_bias_rows(bias, torch.bfloat16))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    cast = fa.pad_bias_rows(bias, torch.bfloat16)
+    assert cast.dtype == torch.bfloat16 and cast.stride(2) == 48
+    torch.testing.assert_close(cast, bias.to(torch.bfloat16), rtol=0,
+                               atol=0)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -119,9 +120,12 @@ def test_hoisted_bias_equals_inline():
 
 def test_rel_pos_bias_table_resize_matches_jax():
     """The width-major bilinear table resize on a non-square window (1e-5:
-    the JAX taps are f64-derived weights rounded to f32, torch's are f32)."""
+    the JAX taps are f64-derived weights rounded to f32, torch's are f32).
+    The bias is a view in K1's padded-row layout: rows a multiple of 16
+    elements, heads packed behind them."""
     from depthmap_tpu.models.beit import RelPosBias
     from depthmap_tpu_torch.models.beit import rel_pos_bias
+    from depthmap_tpu_torch.ops.flash_attention import bias_row_stride
     tw, heads = 6, 3
     table = np.random.default_rng(9).normal(
         size=((2 * tw - 1) ** 2 + 3, heads)).astype(np.float32)
@@ -129,7 +133,48 @@ def test_rel_pos_bias_table_resize_matches_jax():
         want = np.asarray(RelPosBias(heads, (tw, tw)).apply(
             {"params": {"relative_position_bias_table": table}}, window))
         got = rel_pos_bias(torch.from_numpy(table), (tw, tw), window)
+        n = window[0] * window[1] + 1
+        assert got.shape == (1, heads, n, n)
+        assert got.stride(-1) == 1 and got.stride(2) % 16 == 0
+        assert got.stride(2) == -(-n // 16) * 16
+        assert bias_row_stride(got) == got.stride(2)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("window", [(4, 6), (6, 6), (5, 9)])
+def test_precompute_rel_biases_bf16_keeps_padded_layout(window):
+    """The hoist in bf16 casts the table before the gather, so every bias
+    keeps the padded-row view, and its values equal the f32 bias cast to
+    bf16 (a gather is exact)."""
+    from depthmap_tpu_torch.models.beit import precompute_rel_biases
+    from depthmap_tpu_torch.ops.flash_attention import bias_row_stride
+    tm = torch_small_module(jax_small_variables(seed=11))
+    n = window[0] * window[1] + 1
+    f32 = precompute_rel_biases(tm.pretrained, window)
+    bf16 = precompute_rel_biases(tm.pretrained, window, torch.bfloat16)
+    assert len(bf16) == SMALL["depth"]
+    for a, b in zip(f32, bf16):
+        assert b.dtype == torch.bfloat16
+        assert b.shape == (1, SMALL["num_heads"], n, n)
+        assert bias_row_stride(b) == -(-n // 16) * 16
+        assert not b.is_contiguous() or n % 16 == 0
+        torch.testing.assert_close(b, a.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_relative_position_index_padded_matches_jax():
+    """The padded index equals the JAX package's in its first N columns and
+    indexes a real table entry in the pad columns."""
+    from depthmap_tpu.models.beit import gen_relative_position_index as j_gen
+    from depthmap_tpu_torch.models.beit import gen_relative_position_index
+    for wh, ww in ((4, 6), (5, 5), (3, 7)):
+        n = wh * ww + 1
+        ld = -(-n // 16) * 16
+        got = gen_relative_position_index(wh, ww, ld=ld).numpy()
+        assert got.shape == (n, ld)
+        np.testing.assert_array_equal(got[:, :n], j_gen(wh, ww))
+        assert (got[:, n:] == 0).all()
+        np.testing.assert_array_equal(
+            gen_relative_position_index(wh, ww).numpy(), j_gen(wh, ww))
 
 
 def test_weights_round_trip():

@@ -136,7 +136,7 @@ def test_create_stereoimages_matches_jax(rng, balance, fill):
     modes = list(STEREO_MODES)
     want = j_create(img, depth, 2.5, 0.3, modes, balance, 1.0, fill)
     got = create_stereoimages(img, depth, 2.5, 0.3, modes, balance, 1.0,
-                              fill)
+                              fill, device="cpu")
     assert len(got) == len(want) == 8
     for m, g, wnt in zip(modes, got, want):
         assert g.dtype == np.uint8, m
@@ -148,4 +148,21 @@ def test_warp_fills_not_ported(rng):
     depth = np.arange(32, dtype=np.uint16).reshape(4, 8)
     for fill in ("none", "naive", "naive_interpolating"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_stereoimages(img, depth, 2.5, fill_technique=fill)
+            create_stereoimages(img, depth, 2.5, fill_technique=fill,
+                                device="cpu")
+
+
+def test_create_stereoimages_defaults_to_the_card(rng):
+    """numpy inputs and no device: the card, through resolve_device, which
+    raises without CUDA; with a card, K2 runs there."""
+    img = (rng.random((6, 32, 3)) * 255).astype(np.uint8)
+    depth = (rng.random((6, 32)) * 65535).astype(np.uint16)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_stereoimages(img, depth, 2.5)
+        return
+    before = P.polylines_cuda.launches
+    got = create_stereoimages(img, depth, 2.5)
+    assert P.polylines_cuda.launches == before + 2
+    want = create_stereoimages(img, depth, 2.5, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
