@@ -16,8 +16,11 @@ and prints no result):
      padded-row bias and without; per case the kernel's time, the plain
      version's, SDPA's on the same tensors (efficient-attention backend
      pinned; the port never calls it), the bound and the share of it;
-  3. K2 (polylines) against its plain version at 1080x1920, byte-exact,
-     with its bound;
+  3. K2 (polylines) against its plain version at 1080x1920, byte-exact:
+     8 cases on a random depth map (the timed one: sharp, +-24 px) and one
+     timed case on a smooth map, like the main path's; each stage's time
+     (the sort, the sweep), the sweep's steps per row and its time per
+     step, and the bound;
   4. main path, MAIN_RUNS timed runs: dpt_beit_large_512 at full width
      (24 blocks, 1024 wide, random init from a seed, bf16) through
      PredictorCache and core_generation_funnel: 4 images of 512x512
@@ -28,7 +31,7 @@ and prints no result):
   5. whole-path numerics: one 512x512 image through the predictor in f32
      on the card (kernels, TF32 off) and on the CPU (plain versions).
 With --profile, torch.profiler over one warm funnel run per path gives
-each path's device time and K1's / K2's share of it.
+each path's device time and K1's / K2's share of it (K2: both stages).
 The last lines: the card's name and power limit, a JSON line with each
 kernel's numbers, and {"ok": true, "device": {...}}.
 """
@@ -205,6 +208,28 @@ def phase_k1():
     return worst, main
 
 
+def k2_stages(img, nd, div, sharp):
+    """K2's two stages timed apart, and the sweep's steps: (sort_ms,
+    sweep_ms, max steps of a row, mean steps)."""
+    import torch
+    from depthmap_tpu_torch.ops import polylines as pl
+    rows, w, ch = img.shape
+    sorted_, rgb, order = pl._sort_cuda(img, nd, div, 0.0, 1.0, sharp)
+    sort_ms = cuda_ms(lambda: pl._sort_cuda(img, nd, div, 0.0, 1.0, sharp),
+                      5)
+    sweep_ms = cuda_ms(lambda: pl._sweep_cuda(sorted_, rgb, order, w, ch,
+                                              sharp), 5)
+    # a row's parts: for each column, the sorted points from the last one
+    # below it to the last one below the next column
+    n_seg = 2 * w + 1 if sharp else w + 1
+    pts = sorted_[0, :, :n_seg + 1].contiguous()
+    edges = torch.tensor([0.0, float(w)], dtype=torch.float64,
+                         device=pts.device).expand(rows, 2).contiguous()
+    lo = torch.searchsorted(pts, edges)
+    steps = (lo[:, 1] - lo[:, 0] + w).double()
+    return sort_ms, sweep_ms, int(steps.max()), float(steps.mean())
+
+
 def phase_k2():
     import torch
     from depthmap_tpu_torch.ops import polylines as pl
@@ -212,30 +237,45 @@ def phase_k2():
     img = torch.randint(0, 256, (1080, 1920, 3), generator=g,
                         dtype=torch.uint8).cuda()
     nd = torch.rand((1080, 1920), generator=g, dtype=torch.float64).cuda()
+    yy, xx = torch.meshgrid(torch.arange(1080, dtype=torch.float64),
+                            torch.arange(1920, dtype=torch.float64),
+                            indexing="ij")
+    smooth = (0.5 + 0.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0)).cuda()
     timed = []
     worst = 0
     # one eye: the image and the f64 map read once, the eye written once
     bound_ms, basis = bound(1080 * 1920 * (3 + 8 + 3), 0.0)
     log("3-k2", bound_us=f"{bound_ms * 1e3:.2f}", bound_by=basis)
-    for sharp in (True, False):
-        for div in (24.0, -24.0, 48.0, -48.0):
-            got = pl.polylines_cuda(img, nd, div, 0.0, 1.0, sharp)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = pl.polylines_plain(img, nd, div, 0.0, 1.0, sharp)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            ndiff = int((got != want).sum())
-            worst = max(worst, int((got.int() - want.int()).abs().max()))
-            ms = cuda_ms(lambda: pl.polylines_cuda(img, nd, div, 0.0, 1.0,
-                                                   sharp), 3)
-            log("3-k2", sharp=sharp, divergence_px=div, bytes_differ=ndiff,
-                ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}")
-            if ndiff:
-                raise AssertionError(f"K2 sharp={sharp} div={div}: {ndiff} "
-                                     "bytes differ from the plain version")
-            if sharp and abs(div) == 24.0:
-                timed.append((ms, plain_ms))
+    cases = [("random", nd, sharp, div) for sharp in (True, False)
+             for div in (24.0, -24.0, 48.0, -48.0)] + \
+        [("smooth", smooth, True, 24.0)]
+    for depth, m, sharp, div in cases:
+        got = pl.polylines_cuda(img, m, div, 0.0, 1.0, sharp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pl.polylines_plain(img, m, div, 0.0, 1.0, sharp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ndiff = int((got != want).sum())
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        ms = cuda_ms(lambda: pl.polylines_cuda(img, m, div, 0.0, 1.0,
+                                               sharp), 5)
+        extra = {}
+        if sharp and div == 24.0:
+            sort_ms, sweep_ms, steps, mean = k2_stages(img, m, div, sharp)
+            extra = dict(sort_ms=f"{sort_ms:.4f}", sweep_ms=f"{sweep_ms:.4f}",
+                         steps_max=steps, steps_mean=f"{mean:.1f}",
+                         sweep_ns_per_step=f"{sweep_ms * 1e6 / steps:.1f}",
+                         share_of_bound=f"{bound_ms / ms:.5f}")
+        log("3-k2", depth=depth, sharp=sharp, divergence_px=div,
+            bytes_differ=ndiff, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+            **extra)
+        if ndiff:
+            raise AssertionError(f"K2 {depth} sharp={sharp} div={div}: "
+                                 f"{ndiff} bytes differ from the plain "
+                                 "version")
+        if depth == "random" and sharp and abs(div) == 24.0:
+            timed.append((ms, plain_ms))
     return worst, dict(ms=sum(t[0] for t in timed) / len(timed),
                        plain_ms=sum(t[1] for t in timed) / len(timed),
                        library_ms=None, bound_ms=bound_ms, bound_by=basis)
@@ -284,12 +324,15 @@ def profile_paths(cache, inp, images):
         if total <= 0:
             raise AssertionError("the profiler saw no device time")
         k1 = sum(t for k, t in dev.items() if "flash_fwd" in k)
-        k2 = sum(t for k, t in dev.items() if "polylines_rows" in k)
+        k2_sort = sum(t for k, t in dev.items() if "polylines_sort" in k)
+        k2_sweep = sum(t for k, t in dev.items() if "polylines_sweep" in k)
+        k2 = k2_sort + k2_sweep
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
         log("4-profile", path=label, wall_ms=f"{wall_ms:.2f}",
             device_ms=f"{total:.2f}", busy=f"{total / wall_ms:.3f}",
             k1_ms=f"{k1:.2f}", k1_share=f"{k1 / total:.3f}",
             k2_ms=f"{k2:.2f}", k2_share=f"{k2 / total:.3f}",
+            k2_sort_ms=f"{k2_sort:.2f}", k2_sweep_ms=f"{k2_sweep:.2f}",
             top=repr([(k[:48], round(t, 3)) for k, t in top]))
 
 

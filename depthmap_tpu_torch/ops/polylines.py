@@ -195,20 +195,89 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp = ctypes.c_void_p
         ci, cd = ctypes.c_int, ctypes.c_double
-        lib.polylines_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                          ci, ci, cd, cd, cd, ci, vp]
-        lib.polylines_forward.restype = ctypes.c_int
-        lib.polylines_error_string.argtypes = [ctypes.c_int]
+        lib.polylines_sort_scratch_bytes.argtypes = [ci, ci]
+        lib.polylines_sort_scratch_bytes.restype = ctypes.c_longlong
+        lib.polylines_spill_slots.argtypes = [ci, ci]
+        lib.polylines_spill_slots.restype = ci
+        lib.polylines_sort_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                               ci, ci, cd, cd, ci, vp]
+        lib.polylines_sort_forward.restype = ci
+        lib.polylines_sweep_forward.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                                ci, ci, ci, vp]
+        lib.polylines_sweep_forward.restype = ci
+        lib.polylines_error_string.argtypes = [ci]
         lib.polylines_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _raise_on(lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError("polylines kernel: "
+                           + lib.polylines_error_string(err).decode())
+
+
+def _sort_cuda(image: torch.Tensor, nd: torch.Tensor, divergence_px: float,
+               separation_px: float, exponent: float, sharp: bool):
+    """Stage A of the kernel: image (R, W, C) uint8 and nd (R, W) float64 on
+    the card -> the segments in stable order of their start x: sorted
+    (5, R, stride) f64 (start x, end x, closeness at start and end,
+    1 / (end x - start x); sorted[0][:, n_seg] is the last point, 2W), rgb
+    (R, stride) int64 (the start and end columns' colours, channel ch in
+    byte ch and byte 4 + ch) and order (R, stride) int32 (the start point);
+    n_seg = 2W + 1 sharp, W + 1 soft."""
+    rows, w, ch = image.shape
+    # nd^exponent by the plain version's own operation
+    ep = nd if exponent == 1.0 else nd.pow(exponent).contiguous()
+    n_seg = 2 * w + 1 if sharp else w + 1
+    stride = (n_seg + 1 + 31) // 32 * 32
+    dev = nd.device
+    lib = _lib()
+    sorted_ = torch.empty((5, rows, stride), dtype=torch.float64, device=dev)
+    rgb = torch.empty((rows, stride), dtype=torch.int64, device=dev)
+    order = torch.empty((rows, stride), dtype=torch.int32, device=dev)
+    per_row = lib.polylines_sort_scratch_bytes(w, int(bool(sharp)))
+    scratch = torch.empty(rows * per_row, dtype=torch.uint8, device=dev) \
+        if per_row else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib, lib.polylines_sort_forward(
+            image.data_ptr(), ep.data_ptr(), sorted_.data_ptr(),
+            rgb.data_ptr(), order.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, rows, w, ch,
+            stride, float(divergence_px), float(separation_px),
+            int(bool(sharp)), stream))
+    return sorted_, rgb, order
+
+
+def _sweep_cuda(sorted_: torch.Tensor, rgb: torch.Tensor,
+                order: torch.Tensor, w: int, ch: int,
+                sharp: bool) -> torch.Tensor:
+    """Stage B of the kernel on stage A's arrays -> the eye (R, W, C)
+    uint8."""
+    rows, stride = order.shape
+    dev = order.device
+    lib = _lib()
+    spill = lib.polylines_spill_slots(w, int(bool(sharp)))
+    # a spilled slot is 7 words (Seg in csrc/polylines.cu)
+    spill_words = torch.empty((rows, 7, spill), dtype=torch.int64,
+                              device=dev)
+    out = torch.empty((rows, w, ch), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib, lib.polylines_sweep_forward(
+            out.data_ptr(), sorted_.data_ptr(), rgb.data_ptr(),
+            order.data_ptr(), spill_words.data_ptr(), rows, w, ch, stride,
+            spill, int(bool(sharp)), stream))
+    return out
 
 
 def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
                    divergence_px: float, separation_px: float,
                    exponent: float, sharp: bool) -> torch.Tensor:
     """Launch the CUDA kernel: image (R, W, C) uint8 and nd (R, W) float64,
-    contiguous, on one CUDA device; every row in one launch."""
+    contiguous, on one CUDA device; every row in one launch of each stage
+    (the sort, then the sweep)."""
     if not (image.is_cuda and nd.is_cuda) or image.device != nd.device:
         raise ValueError("polylines_cuda needs image and nd on one CUDA "
                          "device")
@@ -222,26 +291,11 @@ def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
                          f"{tuple(nd.shape)}: need (R, W, 1..4) and (R, W)")
     if not (image.is_contiguous() and nd.is_contiguous()):
         raise ValueError("polylines_cuda needs contiguous inputs")
-    rows, w, ch = image.shape
+    _, w, ch = image.shape
     _check_span(w, divergence_px, separation_px)
-    dev = image.device
-    out = torch.empty_like(image)
-    px = torch.empty((rows, 2 * w + 2), dtype=torch.float64, device=dev)
-    pd = torch.empty_like(px)
-    sx = torch.empty_like(px)
-    order = torch.empty((rows, 2 * w + 2), dtype=torch.int32, device=dev)
-    active = torch.empty_like(order)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.polylines_forward(
-            image.data_ptr(), nd.data_ptr(), out.data_ptr(), px.data_ptr(),
-            pd.data_ptr(), sx.data_ptr(), order.data_ptr(), active.data_ptr(),
-            rows, w, ch, float(divergence_px), float(separation_px),
-            float(exponent), int(bool(sharp)), stream)
-    if err != 0:
-        raise RuntimeError("polylines kernel: "
-                           + lib.polylines_error_string(err).decode())
+    sorted_, rgb, order = _sort_cuda(image, nd, divergence_px, separation_px,
+                                     exponent, sharp)
+    out = _sweep_cuda(sorted_, rgb, order, w, ch, sharp)
     polylines_cuda.launches += 1
     return out
 

@@ -98,6 +98,59 @@ def test_large_divergence_f64_depth(rng):
         _check(img, nd, -0.05 * w, 0.7, 0.5, sharp)
 
 
+def _max_active(nd, w, divpx, sep, expo, sharp):
+    """Most segments on the host kernel's active list over all parts of
+    all rows (its push and swap-with-last removal only)."""
+    most = 0
+    for row in np.asarray(nd, np.float64):
+        cx = np.arange(w) + 0.5 + row ** expo * divpx + sep
+        x = np.stack([cx - 0.45, cx + 0.45], 1).ravel() if sharp else cx
+        px = np.concatenate([[-1.0 * w], x, [2.0 * w]])
+        order = np.argsort(px[:-1], kind="stable")
+        pts = np.concatenate([px[order], px[-1:]])
+        x1 = px[order + 1]
+        active, ptr, j = [], 0, 0
+        for col in range(w):
+            while pts[j + 1] < col:
+                j += 1
+            while True:
+                a, b = pts[j], pts[j + 1]
+                cf = max(float(col), a) + 1e-7
+                xc = cf + 0.5 * (min(col + 1.0, b) - 1e-7 - cf)
+                while ptr < len(order) and pts[ptr] < xc:
+                    active.append(ptr)
+                    ptr += 1
+                active = [s for s in active if not x1[s] < xc]
+                most = max(most, len(active))
+                if not b < col + 1:
+                    break
+                j += 1
+    return most
+
+
+@pytest.mark.parametrize("case", ["random_sharp", "random_soft",
+                                  "steps_sharp", "steps_soft", "flat_wide"])
+def test_many_active_segments(rng, case):
+    """The regimes the warp-per-row sweep must meet: more than 32 active
+    segments (random depth, +-200 px at w = 256) and depth steps or flat
+    depth at divergences where segments overlap."""
+    h, w = 3, 256
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    sharp = case.endswith("sharp")
+    if case.startswith("random"):
+        nd, divpx = rng.random((h, w)), 200.0 if sharp else -200.0
+    elif case.startswith("steps"):
+        nd = np.tile((np.arange(w) // 16 % 2).astype(np.float64), (h, 1))
+        divpx = 60.0 if sharp else -60.0
+    else:
+        nd, divpx = np.full((h, w), 0.75), -120.0
+    _check(img, nd, divpx, 0.0, 1.0, sharp)
+    if case.startswith("random"):
+        assert _max_active(nd, w, divpx, 0.0, 1.0, sharp) > 32
+    if case.startswith("steps"):
+        assert _max_active(nd, w, divpx, 0.0, 1.0, sharp) > 2
+
+
 def test_batched_matches_single(rng):
     h, w = 6, 96
     imgs = (rng.random((2, h, w, 3)) * 255).astype(np.uint8)
