@@ -16,18 +16,20 @@ and prints no result):
      padded-row bias and without; per case the kernel's time, the plain
      version's, SDPA's on the same tensors (efficient-attention backend
      pinned; the port never calls it), the bound and the share of it;
-  3. K2 (polylines) against its plain version at 1080x1920, byte-exact:
+  3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
      8 cases on a random depth map (the timed one: sharp, +-24 px) and one
-     timed case on a smooth map, like the main path's; each stage's time
-     (the sort, the sweep), the sweep's steps per row and its time per
-     step, and the bound;
+     timed case on a smooth map, like the main path's; at 512x512 (the
+     main path's other eyes), sharp at its +-6.4 px, random and smooth;
+     each stage's time (the sort, the sweep), the sweep's steps per row
+     and its time per step, and the bound;
   4. main path, MAIN_RUNS timed runs: dpt_beit_large_512 at full width
      (24 blocks, 1024 wide, random init from a seed, bf16) through
      PredictorCache and core_generation_funnel: 4 images of 512x512
      (batched pre-pass) and one of 1920x1080 (serial path, inline
      per-block bias, table resize), with
      depth, left-right and red-cyan-anaglyph outputs; the kernels' launch
-     counts must show the path ran through them;
+     counts (K2: its sort and its sweep, one of each per eye) must show the
+     path ran through them;
   5. whole-path numerics: one 512x512 image through the predictor in f32
      on the card (kernels, TF32 off) and on the CPU (plain versions).
 With --profile, torch.profiler over one warm funnel run per path gives
@@ -230,26 +232,45 @@ def k2_stages(img, nd, div, sharp):
     return sort_ms, sweep_ms, int(steps.max()), float(steps.mean())
 
 
+def k2_inputs(g, rows, w):
+    """An image, a random depth map and a smooth one (like the main
+    path's), on the card."""
+    import torch
+    img = torch.randint(0, 256, (rows, w, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    nd = torch.rand((rows, w), generator=g, dtype=torch.float64).cuda()
+    yy, xx = torch.meshgrid(torch.arange(rows, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64),
+                            indexing="ij")
+    smooth = (0.5 + 0.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0)).cuda()
+    return img, {"random": nd, "smooth": smooth}
+
+
 def phase_k2():
     import torch
     from depthmap_tpu_torch.ops import polylines as pl
     g = torch.Generator(device="cpu").manual_seed(2)
-    img = torch.randint(0, 256, (1080, 1920, 3), generator=g,
-                        dtype=torch.uint8).cuda()
-    nd = torch.rand((1080, 1920), generator=g, dtype=torch.float64).cuda()
-    yy, xx = torch.meshgrid(torch.arange(1080, dtype=torch.float64),
-                            torch.arange(1920, dtype=torch.float64),
-                            indexing="ij")
-    smooth = (0.5 + 0.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0)).cuda()
+    inputs = {1080: k2_inputs(g, 1080, 1920), 512: k2_inputs(g, 512, 512)}
     timed = []
     worst = 0
     # one eye: the image and the f64 map read once, the eye written once
-    bound_ms, basis = bound(1080 * 1920 * (3 + 8 + 3), 0.0)
-    log("3-k2", bound_us=f"{bound_ms * 1e3:.2f}", bound_by=basis)
-    cases = [("random", nd, sharp, div) for sharp in (True, False)
+    bounds = {rows: bound(img.shape[0] * img.shape[1] * (3 + 8 + 3), 0.0)
+              for rows, (img, _) in inputs.items()}
+    bound_ms, basis = bounds[1080]
+    log("3-k2", bound_us_1080p=f"{bound_ms * 1e3:.2f}",
+        bound_us_512=f"{bounds[512][0] * 1e3:.2f}", bound_by=basis)
+    # (rows, depth, sharp, divergence px); the main path's eyes are sharp,
+    # at +-2.5% / 2 of the width: +-24 px at 1080p, +-6.4 px at 512^2.  The
+    # first case of each (rows, depth) is timed by stage.
+    cases = [(1080, "random", sharp, div) for sharp in (True, False)
              for div in (24.0, -24.0, 48.0, -48.0)] + \
-        [("smooth", smooth, True, 24.0)]
-    for depth, m, sharp, div in cases:
+        [(1080, "smooth", True, 24.0)] + \
+        [(512, depth, True, div) for depth in ("random", "smooth")
+         for div in (6.4, -6.4)]
+    staged = set()
+    for rows, depth, sharp, div in cases:
+        img, maps = inputs[rows]
+        m = maps[depth]
         got = pl.polylines_cuda(img, m, div, 0.0, 1.0, sharp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -261,20 +282,21 @@ def phase_k2():
         ms = cuda_ms(lambda: pl.polylines_cuda(img, m, div, 0.0, 1.0,
                                                sharp), 5)
         extra = {}
-        if sharp and div == 24.0:
+        if (rows, depth) not in staged:
+            staged.add((rows, depth))
             sort_ms, sweep_ms, steps, mean = k2_stages(img, m, div, sharp)
             extra = dict(sort_ms=f"{sort_ms:.4f}", sweep_ms=f"{sweep_ms:.4f}",
                          steps_max=steps, steps_mean=f"{mean:.1f}",
                          sweep_ns_per_step=f"{sweep_ms * 1e6 / steps:.1f}",
-                         share_of_bound=f"{bound_ms / ms:.5f}")
-        log("3-k2", depth=depth, sharp=sharp, divergence_px=div,
-            bytes_differ=ndiff, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
-            **extra)
+                         share_of_bound=f"{bounds[rows][0] / ms:.5f}")
+        log("3-k2", shape=f"{rows}x{img.shape[1]}", depth=depth, sharp=sharp,
+            divergence_px=div, bytes_differ=ndiff, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.1f}", **extra)
         if ndiff:
-            raise AssertionError(f"K2 {depth} sharp={sharp} div={div}: "
-                                 f"{ndiff} bytes differ from the plain "
+            raise AssertionError(f"K2 {rows} {depth} sharp={sharp} div={div}:"
+                                 f" {ndiff} bytes differ from the plain "
                                  "version")
-        if depth == "random" and sharp and abs(div) == 24.0:
+        if rows == 1080 and depth == "random" and sharp and abs(div) == 24.0:
             timed.append((ms, plain_ms))
     return worst, dict(ms=sum(t[0] for t in timed) / len(timed),
                        plain_ms=sum(t[1] for t in timed) / len(timed),
@@ -366,7 +388,8 @@ def phase_main_path(profile: bool = False):
 
     for run in range(MAIN_RUNS):
         fa.flash_attention_cuda.launches = 0
-        pl.polylines_cuda.launches = 0
+        pl._sort_cuda.launches = 0
+        pl._sweep_cuda.launches = 0
         results = {}
         t_start = time.perf_counter()
         t_batched = None
@@ -378,7 +401,8 @@ def phase_main_path(profile: bool = False):
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         k1 = fa.flash_attention_cuda.launches
-        k2 = pl.polylines_cuda.launches
+        k2_sort = pl._sort_cuda.launches
+        k2 = pl._sweep_cuda.launches
 
         for i, img in enumerate(images):
             h, w = img.shape[:2]
@@ -394,16 +418,17 @@ def phase_main_path(profile: bool = False):
         if k1 != blocks * forwards:
             raise AssertionError(f"K1 launched {k1} times, expected "
                                  f"{blocks} x {forwards}")
-        if k2 != 2 * len(images):
-            raise AssertionError(f"K2 launched {k2} times, expected "
-                                 f"{2 * len(images)}")
+        if (k2_sort, k2) != (2 * len(images),) * 2:
+            raise AssertionError(f"K2 launched its sort {k2_sort} and its "
+                                 f"sweep {k2} times, expected "
+                                 f"{2 * len(images)} each (one per eye)")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         log("4-main", run=run, model="dpt_beit_large_512", blocks=blocks,
             width=width, dtype=str(pred.compute_dtype),
             build_s=f"{build_s:.2f}",
             s_per_image_512_batched=f"{(t_batched - t_start) / 4:.4f}",
             s_per_image_1080p_serial=f"{t_end - t_batched:.4f}",
-            k1_launches=k1, k2_launches=k2,
+            k1_launches=k1, k2_launches=k2, k2_sort_launches=k2_sort,
             max_memory_allocated_GiB=f"{peak_gib:.3f}")
     if profile:
         profile_paths(cache, inp, images)
@@ -467,6 +492,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("flash_attention", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
             k1),
+        # K2's launches: its sweep's, one per eye (each eye also launched
+        # one sort, checked in phase 4)
         row("polylines", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2),
     ]}))
     print(json.dumps({"ok": True, "device": {

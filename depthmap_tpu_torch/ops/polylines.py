@@ -247,14 +247,21 @@ def _sort_cuda(image: torch.Tensor, nd: torch.Tensor, divergence_px: float,
             scratch.data_ptr() if scratch is not None else None, rows, w, ch,
             stride, float(divergence_px), float(separation_px),
             int(bool(sharp)), stream))
+    _sort_cuda.launches += 1
     return sorted_, rgb, order
+
+
+_sort_cuda.launches = 0
 
 
 def _sweep_cuda(sorted_: torch.Tensor, rgb: torch.Tensor,
                 order: torch.Tensor, w: int, ch: int,
                 sharp: bool) -> torch.Tensor:
     """Stage B of the kernel on stage A's arrays -> the eye (R, W, C)
-    uint8."""
+    uint8.  Its spill area has room for every segment of a row on the
+    active list, so no input outgrows it (a smaller one sized from a
+    bound needs an overflow check and a host sync per call; PERF.md has
+    what that cost)."""
     rows, stride = order.shape
     dev = order.device
     lib = _lib()
@@ -269,7 +276,11 @@ def _sweep_cuda(sorted_: torch.Tensor, rgb: torch.Tensor,
             out.data_ptr(), sorted_.data_ptr(), rgb.data_ptr(),
             order.data_ptr(), spill_words.data_ptr(), rows, w, ch, stride,
             spill, int(bool(sharp)), stream))
+    _sweep_cuda.launches += 1
     return out
+
+
+_sweep_cuda.launches = 0
 
 
 def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
@@ -277,7 +288,7 @@ def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
                    exponent: float, sharp: bool) -> torch.Tensor:
     """Launch the CUDA kernel: image (R, W, C) uint8 and nd (R, W) float64,
     contiguous, on one CUDA device; every row in one launch of each stage
-    (the sort, then the sweep)."""
+    (the sort, then the sweep), each stage counting its own launches."""
     if not (image.is_cuda and nd.is_cuda) or image.device != nd.device:
         raise ValueError("polylines_cuda needs image and nd on one CUDA "
                          "device")
@@ -295,12 +306,7 @@ def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
     _check_span(w, divergence_px, separation_px)
     sorted_, rgb, order = _sort_cuda(image, nd, divergence_px, separation_px,
                                      exponent, sharp)
-    out = _sweep_cuda(sorted_, rgb, order, w, ch, sharp)
-    polylines_cuda.launches += 1
-    return out
-
-
-polylines_cuda.launches = 0
+    return _sweep_cuda(sorted_, rgb, order, w, ch, sharp)
 
 
 def polylines_rasterize(image: torch.Tensor, nd: torch.Tensor,

@@ -104,6 +104,8 @@ def _depth(kind: str, rows: int, w: int, seed: int) -> np.ndarray:
         return np.full((rows, w), 0.5)
     if kind == "ties":   # quantized: many points share an exact x
         return rng.integers(0, 5, (rows, w)) / 4.0
+    if kind == "beyond":   # far outside [0, 1]: points move 90x divergence
+        return rng.random((rows, w)) * 90.0
     yy, xx = np.mgrid[0:rows, 0:w]
     return 0.5 + 0.5 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
 
@@ -111,7 +113,8 @@ def _depth(kind: str, rows: int, w: int, seed: int) -> np.ndarray:
 # case: (rows, w, channels, depth, divergence_px, separation_px, exponent,
 # sharp).  over_32 and over_64 hold more active segments than a lane
 # holds in registers (the spill slots); wide_sort sorts in device scratch
-# (its points do not fit in shared memory).
+# (its points do not fit in shared memory); nd_beyond_1 moves points up to
+# 90x further than |divergence| (hundreds of active segments).
 K2_CASES = {
     "flat_sharp": (16, 480, 3, "flat", 24.0, 0.0, 1.0, True),
     "flat_soft": (16, 480, 3, "flat", -41.0, 0.0, 1.0, False),
@@ -129,6 +132,7 @@ K2_CASES = {
     "w2": (8, 2, 3, "random", -1.2, 0.0, 1.0, False),
     "w3": (8, 3, 4, "random", 1.9, 0.5, 1.0, True),
     "wide_sort": (2, 4200, 3, "random", 30.0, 0.0, 1.0, True),
+    "nd_beyond_1": (4, 1920, 3, "beyond", 20.0, 0.0, 1.0, True),
 }
 
 
@@ -142,8 +146,11 @@ def test_polylines_kernel_byte_exact_cases(case):
     img = torch.from_numpy(rng.integers(0, 256, (rows, w, ch),
                                         dtype=np.uint8)).cuda()
     nd = torch.from_numpy(_depth(kind, rows, w, 4)).cuda()
+    before = (P._sort_cuda.launches, P._sweep_cuda.launches)
     got = P.polylines_cuda(img, nd, div, sep, expo, sharp)
     torch.cuda.synchronize()
+    assert (P._sort_cuda.launches, P._sweep_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
     want = P.polylines_plain(img, nd, div, sep, expo, sharp)
     assert torch.equal(got, want), int((got != want).sum())
 

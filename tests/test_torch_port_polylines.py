@@ -174,10 +174,10 @@ def test_divergence_beyond_row_width_rejected():
 def test_cuda_wrapper_rejects_cpu_tensors(rng):
     img = torch.zeros((4, 8, 3), dtype=torch.uint8)
     nd = torch.zeros((4, 8), dtype=torch.float64)
-    before = P.polylines_cuda.launches
+    before = (P._sort_cuda.launches, P._sweep_cuda.launches)
     with pytest.raises(ValueError):
         P.polylines_cuda(img, nd, 1.0, 0.0, 1.0, True)
-    assert P.polylines_cuda.launches == before
+    assert (P._sort_cuda.launches, P._sweep_cuda.launches) == before
 
 
 @pytest.mark.parametrize("balance", [0.0, 0.4, -1.0, 1.0])
@@ -214,8 +214,9 @@ def test_create_stereoimages_defaults_to_the_card(rng):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             create_stereoimages(img, depth, 2.5)
         return
-    before = P.polylines_cuda.launches
+    before = (P._sort_cuda.launches, P._sweep_cuda.launches)
     got = create_stereoimages(img, depth, 2.5)
-    assert P.polylines_cuda.launches == before + 2
+    assert (P._sort_cuda.launches, P._sweep_cuda.launches) == \
+        (before[0] + 2, before[1] + 2)
     want = create_stereoimages(img, depth, 2.5, device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
