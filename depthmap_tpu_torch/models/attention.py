@@ -5,6 +5,12 @@ launches kernel K1 (ops/flash_attention.py), a CPU tensor runs its plain
 version.  There is no fallback from the kernel to plain torch on the card
 and no kill switch.  ``attention_rel_streamed`` / ``RelBiasSpec`` (the
 chunked rel-pos bias for very long sequences) is not ported yet.
+
+Bias-free calls (DINOv2, Depth Anything) go to K1 too, at every length:
+the JAX dispatch sends them to the Pallas kernel only from N = 2048 and
+kv = 1024 and to XLA's attention below that, which is the same function.
+K1 takes D = 64 only (every Depth Anything head has it); any other head
+dimension raises on the card.
 """
 from __future__ import annotations
 

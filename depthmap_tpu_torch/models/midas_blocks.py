@@ -34,7 +34,9 @@ class ResidualConvUnitCustom(nn.Module):
 class FeatureFusionBlockCustom(nn.Module):
     """Optional skip add through resConfUnit1, resConfUnit2, bilinear
     upsample (align_corners=True) to ``size`` or 2x, then the 1x1
-    out_conv."""
+    out_conv.  ``with_skip`` builds resConfUnit1; the forward uses it only
+    when given a skip (Depth Anything's refinenet4 holds one it never
+    calls, as its checkpoint does)."""
 
     def __init__(self, features: int, with_skip: bool = True):
         super().__init__()

@@ -1,10 +1,11 @@
-"""Transformer building blocks of the BEiT backbone.
+"""Transformer building blocks of the BEiT and DINOv2 backbones.
 
 Port of ``depthmap_tpu/models/transformer.py`` in the reference checkpoint
-(timm) layout: ``patch_embed.proj``, ``blocks.{i}.norm1``,
+layouts.  BEiT (timm): ``patch_embed.proj``, ``blocks.{i}.norm1``,
 ``attn.qkv`` (no bias), ``attn.q_bias`` / ``attn.k_bias`` (zero, not
 trained) / ``attn.v_bias``, ``attn.proj``, ``gamma_1``, ``norm2``,
-``mlp.fc1`` / ``mlp.fc2``, ``gamma_2``.
+``mlp.fc1`` / ``mlp.fc2``, ``gamma_2``.  DINOv2: ``attn.qkv`` with a plain
+bias, ``ls1.gamma`` / ``ls2.gamma`` for the layer scales, the rest as BEiT.
 """
 from __future__ import annotations
 
@@ -91,3 +92,48 @@ class Block(nn.Module):
     def forward(self, x, bias: Optional[torch.Tensor] = None):
         x = x + self.gamma_1 * self.attn(self.norm1(x), bias)
         return x + self.gamma_2 * self.mlp(self.norm2(x))
+
+
+class Attention(nn.Module):
+    """MHSA with a plain bias on the packed qkv projection (DINOv2), no
+    additive attention bias."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, n, c = x.shape
+        h = self.num_heads
+        qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        out = attention(qkv[0], qkv[1], qkv[2])
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return self.gamma * x
+
+
+class DinoBlock(nn.Module):
+    """Pre-norm DINOv2 block: LayerNorm eps 1e-6, LayerScale (``ls1``,
+    ``ls2``), exact-GELU MLP."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.ls1 = LayerScale(dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.ls2 = LayerScale(dim)
+
+    def forward(self, x):
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))

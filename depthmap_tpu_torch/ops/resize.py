@@ -11,11 +11,20 @@ import torch.nn.functional as F
 
 
 def interpolate(x: torch.Tensor, size, mode: str = "bilinear",
-                align_corners: bool = False) -> torch.Tensor:
+                align_corners: bool = False, scales=None) -> torch.Tensor:
     """Resize the two trailing spatial axes of an NCHW tensor to ``size``
     (out_h, out_w).  Matching sizes are returned as they are (torch's
-    bilinear and bicubic taps are the identity there)."""
+    bilinear and bicubic taps are the identity there).  ``scales=(sh, sw)``
+    maps coordinates by torch's explicit ``scale_factor`` instead of the
+    size ratio; the output size it gives must be ``size``."""
     out_h, out_w = int(size[0]), int(size[1])
+    if scales is not None:
+        out = F.interpolate(x, scale_factor=tuple(scales), mode=mode,
+                            align_corners=align_corners)
+        if tuple(out.shape[-2:]) != (out_h, out_w):
+            raise ValueError(f"scale_factor {tuple(scales)} gives "
+                             f"{tuple(out.shape[-2:])}, not {(out_h, out_w)}")
+        return out
     if tuple(x.shape[-2:]) == (out_h, out_w):
         return x
     return F.interpolate(x, size=(out_h, out_w), mode=mode,

@@ -5,10 +5,12 @@ Port of ``depthmap_tpu/pipeline/core.py``: a generator yielding
 the JAX funnel yields PIL images: 'depth' is (H, W) uint16, 'concat_depth'
 and the stereo modes are uint8 RGB.
 
-Ported outputs: depth (plain, inverted, concatenated), depth_prediction and
-stereo with the polylines fills.  Boost, normal map, heatmap, simple mesh,
-background removal and the inpainted mesh raise NotImplementedError naming
-their ROADMAP items.  ``compute_device`` picks the device: "GPU" is CUDA
+Ported models: dpt_beit_large_512 / _384 and Depth Anything v1 / v2
+(the default options' model, Depth Anything v2 Base).  Ported outputs:
+depth (plain, inverted, concatenated), depth_prediction and stereo with
+all five fills.  Boost, normal map, heatmap, simple mesh, background
+removal and the inpainted mesh raise NotImplementedError naming their
+ROADMAP items.  ``compute_device`` picks the device: "GPU" is CUDA
 (and raises without it), "CPU" is the host.
 """
 from __future__ import annotations

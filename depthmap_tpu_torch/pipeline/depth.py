@@ -1,9 +1,12 @@
 """Depth prediction engine (torch).
 
 Port of ``depthmap_tpu/pipeline/depth.py``'s DepthPredictor for the BEiT
-DPT models: preprocessing, the forward and the bicubic upsample back to
-the input size run on the predictor's device; ``predict_finalized*`` also
-finalize to uint16 there, so only the uint16 map goes to the host.
+DPT and Depth Anything models: preprocessing, the forward and the upsample
+back to the input size run on the predictor's device;
+``predict_finalized*`` also finalize to uint16 there, so only the uint16
+map goes to the host.  What a backbone computes per grid from its
+parameters alone (BEiT's relative-position biases, DINOv2's resized
+position embeddings) is computed once per grid and kept.
 
 Device: "cuda" (or a cuda:N) needs CUDA and raises without it; "cpu" runs
 everything on the host, attention through K1's plain version.
@@ -78,7 +81,8 @@ class DepthPredictor:
         module.to(device=self.device, dtype=self.compute_dtype)
         module.head_to_f32()
         module.eval()
-        self._bias_cache: Dict[Tuple[int, int], Any] = {}
+        # (kind, grid) -> what the backbone computes per grid
+        self._grid_cache: Dict[Tuple[str, Tuple[int, int]], Any] = {}
 
     # -- inference ---------------------------------------------------------
     def _bias_hoist_ok(self, grid: Tuple[int, int]) -> bool:
@@ -91,11 +95,27 @@ class DepthPredictor:
         return bb.depth * bb.num_heads * n * n * itemsize <= BIAS_HOIST_CAP
 
     def _rel_biases(self, grid: Tuple[int, int]):
-        if grid not in self._bias_cache:
+        key = ("rel_bias", grid)
+        if key not in self._grid_cache:
             from depthmap_tpu_torch.models.beit import precompute_rel_biases
-            self._bias_cache[grid] = precompute_rel_biases(
+            self._grid_cache[key] = precompute_rel_biases(
                 self.bundle.module.pretrained, grid, self.compute_dtype)
-        return self._bias_cache[grid]
+        return self._grid_cache[key]
+
+    def _backbone_kw(self, grid: Tuple[int, int]) -> Dict[str, Any]:
+        """The per-grid inputs of the module's forward: DINOv2's position
+        embeddings, else (BEiT) the hoisted biases or None (built
+        inline)."""
+        from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
+        bb = self.bundle.module.pretrained
+        if isinstance(bb, DinoV2Backbone):
+            key = ("pos_embed", grid)
+            if key not in self._grid_cache:
+                self._grid_cache[key] = bb.pos_embed_for(grid,
+                                                         self.compute_dtype)
+            return {"pos_embed": self._grid_cache[key]}
+        return {"rel_bias": self._rel_biases(grid)
+                if self._bias_hoist_ok(grid) else None}
 
     @torch.no_grad()
     def _forward(self, imgs01: torch.Tensor, net_w: int, net_h: int,
@@ -106,10 +126,8 @@ class DepthPredictor:
                               resize_mode)
         ps = self.bundle.module.pretrained.patch_size
         grid = (x.shape[2] // ps, x.shape[3] // ps)
-        rel_bias = self._rel_biases(grid) if self._bias_hoist_ok(grid) \
-            else None
         pred = self.bundle.module(x.to(self.compute_dtype),
-                                  rel_bias=rel_bias)
+                                  **self._backbone_kw(grid))
         pred = pred[:, None].to(torch.float32)
         out_h, out_w = imgs01.shape[1:3]
         return interpolate(pred, (out_h, out_w), self.bundle.upsample_mode,

@@ -12,7 +12,9 @@ the bf16 cases run the tensor-core body, the f32 ones the CUDA-core body):
 f32 5e-3, the bound the JAX package holds its TPU kernel to; bf16 2e-2,
 about two bf16 ulps of the largest outputs (the output and p are rounded
 to bf16, and a different f32 summation order can flip either rounding).
-K2 is byte-exact.
+K2 and the warp stereo fills are byte-exact.  A small Depth Anything
+forward in f32 on the card (K1 bias-free, TF32 off) holds to 1e-3 of the
+CPU map's range, the bound chip_smoke.py holds the whole path to.
 """
 from __future__ import annotations
 
@@ -22,20 +24,33 @@ import torch
 
 from depthmap_tpu_torch.ops import flash_attention as fa
 from depthmap_tpu_torch.ops import polylines as P
+from depthmap_tpu_torch.ops import stereo as S
 
 
-# case: (dtype, B, N, Nk, bias: None / "shared" / "batched", scale)
+# case: (dtype, B, H, N, Nk, bias: None / "shared" / "batched", scale).
+# The bias-free cases at 6, 12 and 16 heads are Depth Anything's calls:
+# v2 Small / Base / Large at N = 1025 (512^2 at net 448), 1370 (518^2),
+# 1825 (1080p at net 448) and 10765 (1080p with net_size_match), with
+# ragged last kv tiles at 1370, 1825 and 10765.
 K1_CASES = {
-    "bf16_shared_1025": (torch.bfloat16, 4, 1025, 1025, "shared", None),
-    "bf16_shared_1793": (torch.bfloat16, 1, 1793, 1793, "shared", None),
-    "bf16_batched_65": (torch.bfloat16, 2, 65, 65, "batched", None),
-    "bf16_shared_n1": (torch.bfloat16, 2, 1, 1, "shared", None),
-    "bf16_none_cross": (torch.bfloat16, 1, 77, 300, None, None),
-    "bf16_masked_row": (torch.bfloat16, 2, 130, 130, "shared", None),
-    "bf16_scale": (torch.bfloat16, 2, 200, 200, "batched", 0.3),
-    "f32_batched_130": (torch.float32, 2, 130, 130, "batched", None),
-    "f32_shared_1025": (torch.float32, 1, 1025, 1025, "shared", None),
-    "f32_none_513": (torch.float32, 1, 513, 513, None, None),
+    "bf16_shared_1025": (torch.bfloat16, 4, 16, 1025, 1025, "shared", None),
+    "bf16_shared_1793": (torch.bfloat16, 1, 16, 1793, 1793, "shared", None),
+    "bf16_batched_65": (torch.bfloat16, 2, 16, 65, 65, "batched", None),
+    "bf16_shared_n1": (torch.bfloat16, 2, 16, 1, 1, "shared", None),
+    "bf16_none_cross": (torch.bfloat16, 1, 16, 77, 300, None, None),
+    "bf16_masked_row": (torch.bfloat16, 2, 16, 130, 130, "shared", None),
+    "bf16_scale": (torch.bfloat16, 2, 16, 200, 200, "batched", 0.3),
+    "f32_batched_130": (torch.float32, 2, 16, 130, 130, "batched", None),
+    "f32_shared_1025": (torch.float32, 1, 16, 1025, 1025, "shared", None),
+    "f32_none_513": (torch.float32, 1, 16, 513, 513, None, None),
+    "bf16_none_h12_b4_1025": (torch.bfloat16, 4, 12, 1025, 1025, None, None),
+    "bf16_none_h6_1370": (torch.bfloat16, 2, 6, 1370, 1370, None, None),
+    "bf16_none_h12_1825": (torch.bfloat16, 1, 12, 1825, 1825, None, None),
+    "bf16_none_h16_1370": (torch.bfloat16, 1, 16, 1370, 1370, None, None),
+    "bf16_none_h16_10765": (torch.bfloat16, 1, 16, 10765, 10765, None,
+                            None),
+    "f32_none_h12_1370": (torch.float32, 1, 12, 1370, 1370, None, None),
+    "f32_none_h6_1825": (torch.float32, 1, 6, 1825, 1825, None, None),
 }
 
 
@@ -47,8 +62,8 @@ def test_flash_attention_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator(device="cpu").manual_seed(0)
-    dt, b, n, nk, bias_kind, scale = K1_CASES[case]
-    h, d = 16, 64
+    dt, b, h, n, nk, bias_kind, scale = K1_CASES[case]
+    d = 64
     mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dt)  # noqa: E731
     q, k, v = mk(b, h, n, d), mk(b, h, nk, d), mk(b, h, nk, d)
     bias = None
@@ -308,3 +323,68 @@ def test_polylines_sweep_stage_breaks_ties_as_the_host_loop(sharp, span):
                         torch.from_numpy(rgb).cuda(),
                         torch.from_numpy(order).cuda(), w, ch, sharp)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["none", "naive", "naive_interpolating"])
+@pytest.mark.parametrize("div,sep", [(1.25, 0.0), (-1.25, 0.0),
+                                     (2.5, 0.4), (-2.5, -0.4)])
+def test_warp_fills_card_equals_cpu(fill, div, sep):
+    """One eye on the card, byte-equal to the CPU's, on a random and a
+    smooth map (the CPU's is byte-equal to the JAX package's:
+    tests/test_torch_port_stereo.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows, w = 48, 640
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.integers(0, 256, (rows, w, 3),
+                                        dtype=np.uint8))
+    for kind in ("random", "structured"):
+        depth = torch.from_numpy((_depth(kind, rows, w, 9) * 65535).astype(
+            np.uint16))
+        want = S.apply_stereo_divergence(img, depth, div, sep, 1.0, fill)
+        got = S.apply_stereo_divergence(img.cuda(), depth.cuda(), div, sep,
+                                        1.0, fill)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), want), (kind, int((got.cpu()
+                                                         != want).sum()))
+
+
+@pytest.mark.cuda
+def test_small_depth_anything_card_matches_cpu():
+    """A small Depth Anything v2 (embed 128, 2 heads of D = 64, depth 4,
+    training size 56) through the predictor at net 70 (a 5 x 9 grid: the
+    position embeddings are resized) in f32: K1 bias-free on the card, its
+    plain version on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.depth_anything import DepthAnything
+    from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+
+    def small():
+        return DepthAnything(DinoV2Backbone(embed_dim=128, depth=4,
+                                            num_heads=2, hooks=(0, 1, 2, 3),
+                                            train_img_size=56),
+                             features=32, out_channels=(16, 32, 64, 64))
+
+    sd = init_random_(small(), seed=2).state_dict()
+    with torch.device("meta"):
+        bundle = build_model(13)
+    img = np.random.default_rng(3).random((2, 45, 77, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pred = DepthPredictor(13, state_dict=sd, compute_dtype=torch.float32,
+                              device=dev, bundle=dataclasses.replace(
+                                  bundle, module=small()))
+        before = fa.flash_attention_cuda.launches
+        out[dev] = pred.predict_batch(img, 70, 70)
+        out[dev + "_launches"] = fa.flash_attention_cuda.launches - before
+    assert out["cuda_launches"] == 4 and out["cpu_launches"] == 0
+    rng_ = float(np.ptp(out["cpu"]))
+    assert rng_ > 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-3 * rng_)

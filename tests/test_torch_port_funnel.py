@@ -187,7 +187,7 @@ def test_unported_options_raise(rng):
             list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
     from depthmap_tpu_torch.models.build import build_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(13)
+        build_model(7)
 
 
 def test_cli_depthmap_stereo(rng, tmp_path):

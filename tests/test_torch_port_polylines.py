@@ -197,12 +197,17 @@ def test_create_stereoimages_matches_jax(rng, balance, fill):
 
 
 def test_warp_fills_not_ported(rng):
-    img = np.zeros((4, 8, 3), np.uint8)
+    """The warp fills were the part of ops/stereo.py not ported at first;
+    now every fill runs and equals the JAX function's bytes (the warp fills
+    in depth: tests/test_torch_port_stereo.py)."""
+    img = (rng.random((4, 8, 3)) * 255).astype(np.uint8)
     depth = np.arange(32, dtype=np.uint16).reshape(4, 8)
     for fill in ("none", "naive", "naive_interpolating"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_stereoimages(img, depth, 2.5, fill_technique=fill,
-                                device="cpu")
+        got = create_stereoimages(img, depth, 12.5, fill_technique=fill,
+                                  device="cpu")
+        want = j_create(img, depth, 12.5, fill_technique=fill)
+        np.testing.assert_array_equal(got[0], np.asarray(want[0]),
+                                      err_msg=fill)
 
 
 def test_create_stereoimages_defaults_to_the_card(rng):
