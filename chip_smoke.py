@@ -14,10 +14,12 @@ and prints no result):
   2. K1 (flash attention) against its plain version at the model paths'
      shapes, bf16 (tensor-core body) and f32 (CUDA-core body), with a
      padded-row bias (BEiT) and without (Depth Anything: 12 and 16 heads,
-     N up to 10765); per case the kernel's time, the plain version's,
-     SDPA's on the same tensors (the efficient backend, and the flash
-     backend where it runs: bf16, no mask; the port never calls either),
-     the bound and the share of it;
+     N up to 10765), on inputs that peak the softmax (K1_Q_SCALE); per
+     case the kernel's time, the plain version's, SDPA's on the same
+     tensors (the efficient backend, and the flash backend where it runs:
+     bf16, no mask; the port never calls either), the bound and the share
+     of it, and the error of three planted faults (a kv tile skipped, the
+     output scaled), each of which must exceed the bound;
   3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
      8 cases on a random depth map (the timed one: sharp, +-24 px) and one
      timed case on a smooth map, like the main path's; at 512x512 (the
@@ -43,7 +45,8 @@ and prints no result):
      with net_size_match on one 1920x1080 image, depth only: N = 10765,
      24 K1 launches;
   8. the warp stereo fills (none, naive, naive_interpolating) at
-     1080x1920, card against CPU byte for byte, ms per eye beside K2's.
+     1080x1920, exponent 1 and 1.7, card against CPU byte for byte, ms
+     per eye beside K2's.
 Each model path (4, 6, 7) sets every kernel count to 0 just before each
 timed run and reads it just after.  With --profile, torch.profiler over one
 warm funnel run per path gives each path's device time and K1's / K2's
@@ -66,8 +69,14 @@ from concurrent.futures import ThreadPoolExecutor
 # bf16 (one ulp is 2^-8 relative, 7.8e-3 at |x| in [1, 2)) and p is
 # rounded to bf16 before p.v, so a different f32 summation order can flip
 # one rounding of each; 2e-2 is about two output ulps at the largest
-# outputs of these random inputs.
+# outputs of these inputs.
 K1_BOUND = {"float32": 5e-3, "bfloat16": 2e-2}
+# K1's inputs: q ~ 4 N(0, 1), k ~ N(0, 1), v ~ N(0, 1) / 4.  The logits
+# (D = 64, scale 1/8) have std 4, so the softmax is peaked and an output
+# is a mix of a few values of v (at most ~1.4), far above the bound where
+# a kernel errs.  With std-1 logits the softmax is nearly flat and the
+# outputs' RMS is sqrt(e / Nk), 0.016 at Nk = 10765: under the bf16 bound.
+K1_Q_SCALE, K1_V_SCALE = 4.0, 0.25
 K1_SOURCE = "depthmap_tpu_torch/csrc/flash_attention.cu"
 K1_REPLACES = "depthmap_tpu/ops/flash_attention.py:250"
 K2_SOURCE = "depthmap_tpu_torch/csrc/polylines.cu"
@@ -173,6 +182,27 @@ def k1_bound(b, h, n, nk, bias_batch, dtype):
     return bound(nbytes, 4.0 * b * h * n * nk * 64, dtype)
 
 
+def k1_fault_errors(q, k, v, bias, want):
+    """What the K1 check sees of a faulty kernel: the max abs error against
+    ``want`` of the answer a kernel with each fault would give, made by the
+    plain version on the same inputs.  Faults: the last kv tile of 64 keys
+    skipped (the ragged one where Nk % 64 != 0), the first one skipped, the
+    output scaled by 0.8.  Each must exceed the case's bound."""
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    nk = k.shape[2]
+
+    def without(keep):
+        b = bias[..., keep] if bias is not None else None
+        return fa.flash_attention_plain(q, k[:, :, keep], v[:, :, keep], b)
+    faults = {"x0.8": lambda: want.float() * 0.8}
+    if nk > 64:
+        faults["last_kv_tile"] = lambda: without(slice(0, nk - (nk % 64
+                                                                or 64)))
+        faults["first_kv_tile"] = lambda: without(slice(64, nk))
+    return {name: (f().float() - want.float()).abs().max().item()
+            for name, f in faults.items()}
+
+
 def phase_k1():
     import torch
     import torch.nn.functional as F
@@ -205,17 +235,20 @@ def phase_k1():
     worst = 0.0
     main = None
     for name, dt, b, h, n, bb in cases:
-        def mk(*shape):
-            return torch.randn(*shape, generator=g).to("cuda", dt)
-        q, k, v = mk(b, h, n, 64), mk(b, h, n, 64), mk(b, h, n, 64)
+        def mk(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g) * scale).to("cuda", dt)
+        q = mk(b, h, n, 64, scale=K1_Q_SCALE)
+        k, v = mk(b, h, n, 64), mk(b, h, n, 64, scale=K1_V_SCALE)
         bias = fa.pad_bias_rows(mk(bb, h, n, n)) if bb else None
         got = fa.flash_attention_cuda(q, k, v, bias)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, bias)
         err = (got.float() - want.float()).abs().max().item()
-        del want
         dts = str(dt).split(".")[-1]
         tol = K1_BOUND[dts]
+        faults = k1_fault_errors(q, k, v, bias, want)
+        del want
+        torch.cuda.empty_cache()
         ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 20)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
                            3)
@@ -237,9 +270,13 @@ def phase_k1():
             sdpa_flash_ms=(f"{library['flash']:.4f}" if "flash" in library
                            else None),
             bound_us=f"{bound_ms * 1e3:.1f}", bound_by=basis,
-            share_of_bound=f"{bound_ms / ms:.3f}")
+            share_of_bound=f"{bound_ms / ms:.3f}",
+            **{f"fault_{f}_err": f"{e:.3e}" for f, e in faults.items()})
         if not err <= tol:
             raise AssertionError(f"K1 {name}: max abs err {err} > {tol}")
+        if not min(faults.values()) > tol:
+            raise AssertionError(f"K1 {name}: a faulty kernel would pass "
+                                 f"the bound {tol}: {faults}")
         worst = max(worst, err)
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms,
@@ -549,8 +586,10 @@ def phase_long_n(profile: bool = False):
 def phase_warp_fills(k2_ms: float):
     """The warp stereo fills at 1080 x 1920, one eye each, on a random and
     a smooth depth map, at +-24 px (1.25%), separation 0 and 0.25% (4.8
-    px), exponent 1: the card's eye byte-equal to the port's CPU eye; ms
-    per eye on the card beside K2's ms per 1080p eye (phase 3)."""
+    px), exponent 1 and 1.7 (where the card's and the CPU's f32 pow may
+    differ in the last bit; the random map holds nearly every 16-bit
+    level): the card's eye byte-equal to the port's CPU eye; ms per eye on
+    the card beside K2's ms per 1080p eye (phase 3)."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import stereo as S
@@ -565,26 +604,26 @@ def phase_warp_fills(k2_ms: float):
     for kind, d in depths.items():
         depth = torch.from_numpy((d * 65535).astype(np.uint16))
         img_c, depth_c = img.cuda(), depth.cuda()
-        for fill in S.WARP_FILLS:
-            for div in (1.25, -1.25):
-                for sep in (0.0, 0.25):
-                    got = S.apply_stereo_divergence(img_c, depth_c, div, sep,
-                                                    1.0, fill)
-                    torch.cuda.synchronize()
-                    want = S.apply_stereo_divergence(img, depth, div, sep,
-                                                     1.0, fill)
-                    ndiff = int((got.cpu() != want).sum())
-                    ms = cuda_ms(lambda: S.apply_stereo_divergence(
-                        img_c, depth_c, div, sep, 1.0, fill), 5)
-                    timed.setdefault(fill, []).append(ms)
-                    log("8-warp", depth=kind, fill=fill, divergence_px=div *
-                        w / 100, separation_px=sep * w / 100,
-                        bytes_differ=ndiff, ms_per_eye=f"{ms:.4f}",
-                        k2_ms_per_eye=f"{k2_ms:.4f}")
-                    if ndiff:
-                        raise AssertionError(
-                            f"warp fill {fill} {kind} div={div} sep={sep}: "
-                            f"{ndiff} bytes differ between card and CPU")
+        cases = [(fill, div, sep, ex) for fill in S.WARP_FILLS
+                 for div in (1.25, -1.25) for sep in (0.0, 0.25)
+                 for ex in (1.0, 1.7)]
+        for fill, div, sep, ex in cases:
+            got = S.apply_stereo_divergence(img_c, depth_c, div, sep, ex,
+                                            fill)
+            torch.cuda.synchronize()
+            want = S.apply_stereo_divergence(img, depth, div, sep, ex, fill)
+            ndiff = int((got.cpu() != want).sum())
+            ms = cuda_ms(lambda: S.apply_stereo_divergence(
+                img_c, depth_c, div, sep, ex, fill), 5)
+            timed.setdefault(fill, []).append(ms)
+            log("8-warp", depth=kind, fill=fill, divergence_px=div * w / 100,
+                separation_px=sep * w / 100, exponent=ex, bytes_differ=ndiff,
+                ms_per_eye=f"{ms:.4f}", k2_ms_per_eye=f"{k2_ms:.4f}")
+            if ndiff:
+                raise AssertionError(
+                    f"warp fill {fill} {kind} div={div} sep={sep} "
+                    f"exponent={ex}: {ndiff} bytes differ between card and "
+                    "CPU")
     log("8-warp", **{f"{f}_ms_mean": f"{sum(t) / len(t):.4f}"
                      for f, t in timed.items()}, k2_ms=f"{k2_ms:.4f}")
 

@@ -8,7 +8,7 @@ laid out width-major as the reference does; the 3 cls rows stay verbatim.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -16,6 +16,10 @@ import torch.nn as nn
 from depthmap_tpu_torch.models.transformer import Block, PatchEmbed
 from depthmap_tpu_torch.ops.flash_attention import bias_row_len
 from depthmap_tpu_torch.ops.resize import interpolate
+
+# All `depth` hoisted rel-pos biases stay resident below this many bytes;
+# above it each block builds its bias inline (one resident at a time).
+BIAS_HOIST_CAP = 2 << 30
 
 
 def gen_relative_position_index(wh: int, ww: int, device=None,
@@ -118,6 +122,19 @@ class BeitBackbone(nn.Module):
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         table = self.model.blocks[i].attn.relative_position_bias_table
         return rel_pos_bias(table, self.model.train_window, window, dtype)
+
+    def grid_inputs(self, grid: Tuple[int, int],
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The forward's per-grid keyword inputs: all ``depth`` biases
+        hoisted when they fit under BIAS_HOIST_CAP (the 512² bucket, ~0.8
+        GB bf16), else None, and each block builds its own (a 1080p input,
+        N = 1793, would need ~2.5 GB)."""
+        n = grid[0] * grid[1] + 1
+        itemsize = torch.empty((), dtype=dtype or self.model.cls_token.dtype
+                               ).element_size()
+        if self.depth * self.num_heads * n * n * itemsize > BIAS_HOIST_CAP:
+            return {"rel_bias": None}
+        return {"rel_bias": precompute_rel_biases(self, grid, dtype)}
 
     def forward(self, x, rel_bias: Optional[Sequence[torch.Tensor]] = None):
         """rel_bias: optional ``depth`` precomputed (1, H, N, N) biases

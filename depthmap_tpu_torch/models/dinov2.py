@@ -16,7 +16,7 @@ kept so a reference checkpoint loads with ``strict=True``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -68,6 +68,12 @@ class DinoV2Backbone(nn.Module):
                             scales=((gh + off) / n, (gw + off) / n))
         patch = patch.permute(0, 2, 3, 1).reshape(1, gh * gw, c)
         return torch.cat([pos[:, :1].float(), patch], 1).to(dtype)
+
+    def grid_inputs(self, grid: Tuple[int, int],
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The forward's per-grid keyword inputs: the resized position
+        embeddings."""
+        return {"pos_embed": self.pos_embed_for(grid, dtype)}
 
     def forward(self, x, pos_embed: Optional[torch.Tensor] = None):
         """(B, 3, H, W) -> ([normed (B, 1+N, C) tokens at each hook], grid).

@@ -52,7 +52,10 @@ def _warp(image: torch.Tensor, nd: torch.Tensor, divergence_px: float,
     outside the static window of the JAX loop, and NaN offsets (a flat
     map), follow XLA: NaN converts to 0, out-of-window offsets land
     nowhere.  The offset is XLA's FMA (one rounding), computed in f64: the
-    product of two f32 values is exact there."""
+    product of two f32 values is exact there.  nd^exponent is an f32 pow;
+    at a non-integer exponent it may differ from XLA's (or from another
+    device's) in the last bit, which moves an offset only where it lies
+    within that bit of an integer."""
     w = nd.shape[-1]
     p = (nd.to(torch.float32) ** exponent).double()
     offset = (p * _f32(divergence_px) + _f32(separation_px)).float().trunc()

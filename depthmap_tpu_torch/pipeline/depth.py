@@ -29,10 +29,6 @@ from depthmap_tpu_torch.registry import MODELS, resolve_model_type
 # fp16 table): bf16 compute for these types, the final head in f32.
 BF16_MODEL_TYPES = frozenset({1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13, 14})
 
-# All `depth` hoisted rel-pos biases stay resident below this many bytes;
-# above it each block builds its bias inline (one resident at a time).
-BIAS_HOIST_CAP = 2 << 30
-
 
 def set_fp32_precision(dev: torch.device) -> None:
     """Full f32 matmuls and convolutions on the card: cuDNN would run f32
@@ -81,41 +77,17 @@ class DepthPredictor:
         module.to(device=self.device, dtype=self.compute_dtype)
         module.head_to_f32()
         module.eval()
-        # (kind, grid) -> what the backbone computes per grid
-        self._grid_cache: Dict[Tuple[str, Tuple[int, int]], Any] = {}
+        # grid -> the backbone's per-grid forward inputs (grid_inputs)
+        self._grid_inputs: Dict[Tuple[int, int], Dict[str, Any]] = {}
 
     # -- inference ---------------------------------------------------------
-    def _bias_hoist_ok(self, grid: Tuple[int, int]) -> bool:
-        """Hoisting keeps all `depth` (H, N, N) biases resident: right for
-        the 512² bucket (~0.8 GB bf16), too much above the cap (a 1080p
-        input, N = 1793, needs ~2.5 GB); there each block builds its own."""
-        bb = self.bundle.module.pretrained
-        n = grid[0] * grid[1] + 1
-        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-        return bb.depth * bb.num_heads * n * n * itemsize <= BIAS_HOIST_CAP
-
-    def _rel_biases(self, grid: Tuple[int, int]):
-        key = ("rel_bias", grid)
-        if key not in self._grid_cache:
-            from depthmap_tpu_torch.models.beit import precompute_rel_biases
-            self._grid_cache[key] = precompute_rel_biases(
-                self.bundle.module.pretrained, grid, self.compute_dtype)
-        return self._grid_cache[key]
-
-    def _backbone_kw(self, grid: Tuple[int, int]) -> Dict[str, Any]:
-        """The per-grid inputs of the module's forward: DINOv2's position
-        embeddings, else (BEiT) the hoisted biases or None (built
-        inline)."""
-        from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
-        bb = self.bundle.module.pretrained
-        if isinstance(bb, DinoV2Backbone):
-            key = ("pos_embed", grid)
-            if key not in self._grid_cache:
-                self._grid_cache[key] = bb.pos_embed_for(grid,
-                                                         self.compute_dtype)
-            return {"pos_embed": self._grid_cache[key]}
-        return {"rel_bias": self._rel_biases(grid)
-                if self._bias_hoist_ok(grid) else None}
+    def grid_inputs(self, grid: Tuple[int, int]) -> Dict[str, Any]:
+        """The backbone's per-grid keyword inputs of the module's forward,
+        computed on the first forward at ``grid`` and kept."""
+        if grid not in self._grid_inputs:
+            self._grid_inputs[grid] = self.bundle.module.pretrained \
+                .grid_inputs(grid, self.compute_dtype)
+        return self._grid_inputs[grid]
 
     @torch.no_grad()
     def _forward(self, imgs01: torch.Tensor, net_w: int, net_h: int,
@@ -127,7 +99,7 @@ class DepthPredictor:
         ps = self.bundle.module.pretrained.patch_size
         grid = (x.shape[2] // ps, x.shape[3] // ps)
         pred = self.bundle.module(x.to(self.compute_dtype),
-                                  **self._backbone_kw(grid))
+                                  **self.grid_inputs(grid))
         pred = pred[:, None].to(torch.float32)
         out_h, out_w = imgs01.shape[1:3]
         return interpolate(pred, (out_h, out_w), self.bundle.upsample_mode,

@@ -12,6 +12,10 @@ the bf16 cases run the tensor-core body, the f32 ones the CUDA-core body):
 f32 5e-3, the bound the JAX package holds its TPU kernel to; bf16 2e-2,
 about two bf16 ulps of the largest outputs (the output and p are rounded
 to bf16, and a different f32 summation order can flip either rounding).
+q is drawn 4x and v 1/4x N(0, 1): the logits have std 4, so the softmax
+is peaked and the outputs (up to ~1.4) stand far above the bound where a
+kernel errs; each case also checks that the answers of planted faults (a
+kv tile skipped, the output scaled by 0.8) break the bound.
 K2 and the warp stereo fills are byte-exact.  A small Depth Anything
 forward in f32 on the card (K1 bias-free, TF32 off) holds to 1e-3 of the
 CPU map's range, the bound chip_smoke.py holds the whole path to.
@@ -54,6 +58,25 @@ K1_CASES = {
 }
 
 
+def _fault_errors(q, k, v, bias, scale, want):
+    """The max abs error against ``want`` of the answer a kernel with each
+    fault would give (the plain version on the same inputs): the last kv
+    tile of 64 keys skipped (the ragged one where Nk % 64 != 0), the first
+    one skipped, the output scaled by 0.8."""
+    nk = k.shape[2]
+
+    def without(keep):
+        b = bias[..., keep] if bias is not None else None
+        return fa.flash_attention_plain(q, k[:, :, keep], v[:, :, keep], b,
+                                        scale)
+    faults = {"x0.8": want.float() * 0.8}
+    if nk > 64:
+        faults["last_kv_tile"] = without(slice(0, nk - (nk % 64 or 64)))
+        faults["first_kv_tile"] = without(slice(64, nk))
+    return {name: (f.float() - want.float()).abs().max().item()
+            for name, f in faults.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_flash_attention_kernel_matches_plain(case):
@@ -64,8 +87,10 @@ def test_flash_attention_kernel_matches_plain(case):
     g = torch.Generator(device="cpu").manual_seed(0)
     dt, b, h, n, nk, bias_kind, scale = K1_CASES[case]
     d = 64
-    mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dt)  # noqa: E731
-    q, k, v = mk(b, h, n, d), mk(b, h, nk, d), mk(b, h, nk, d)
+
+    def mk(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to("cuda", dt)
+    q, k, v = mk(b, h, n, d, s=4.0), mk(b, h, nk, d), mk(b, h, nk, d, s=0.25)
     bias = None
     if bias_kind:
         bias = fa.pad_bias_rows(
@@ -76,9 +101,12 @@ def test_flash_attention_kernel_matches_plain(case):
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, bias, scale)
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= (2e-2 if dt == torch.bfloat16 else 5e-3), err
+    tol = 2e-2 if dt == torch.bfloat16 else 5e-3
+    assert err <= tol, err
     if case == "bf16_masked_row":
         assert torch.count_nonzero(got[:, :, 5]) == 0
+    faults = _fault_errors(q, k, v, bias, scale, want)
+    assert min(faults.values()) > tol, faults
 
 
 @pytest.mark.cuda
@@ -329,22 +357,29 @@ def test_polylines_sweep_stage_breaks_ties_as_the_host_loop(sharp, span):
 @pytest.mark.parametrize("fill", ["none", "naive", "naive_interpolating"])
 @pytest.mark.parametrize("div,sep", [(1.25, 0.0), (-1.25, 0.0),
                                      (2.5, 0.4), (-2.5, -0.4)])
-def test_warp_fills_card_equals_cpu(fill, div, sep):
+@pytest.mark.parametrize("exponent", [1.0, 1.7])
+def test_warp_fills_card_equals_cpu(fill, div, sep, exponent):
     """One eye on the card, byte-equal to the CPU's, on a random and a
-    smooth map (the CPU's is byte-equal to the JAX package's:
-    tests/test_torch_port_stereo.py)."""
+    smooth map and on one that holds every 16-bit level (the CPU's is
+    byte-equal to the JAX package's: tests/test_torch_port_stereo.py).  At
+    exponent 1.7 the card's f32 pow and the CPU's may differ in the last
+    bit; no truncated offset moves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rows, w = 48, 640
+    rows, w = 128, 512
     rng = np.random.default_rng(8)
     img = torch.from_numpy(rng.integers(0, 256, (rows, w, 3),
                                         dtype=np.uint8))
-    for kind in ("random", "structured"):
-        depth = torch.from_numpy((_depth(kind, rows, w, 9) * 65535).astype(
-            np.uint16))
-        want = S.apply_stereo_divergence(img, depth, div, sep, 1.0, fill)
+    depths = {kind: (_depth(kind, rows, w, 9) * 65535).astype(np.uint16)
+              for kind in ("random", "structured")}
+    depths["levels"] = rng.permutation(np.arange(65536, dtype=np.uint16)
+                                       ).reshape(rows, w)
+    for kind, d in depths.items():
+        depth = torch.from_numpy(d)
+        want = S.apply_stereo_divergence(img, depth, div, sep, exponent,
+                                         fill)
         got = S.apply_stereo_divergence(img.cuda(), depth.cuda(), div, sep,
-                                        1.0, fill)
+                                        exponent, fill)
         assert got.is_cuda
         assert torch.equal(got.cpu(), want), (kind, int((got.cpu()
                                                          != want).sum()))

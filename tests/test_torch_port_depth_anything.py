@@ -288,18 +288,16 @@ def test_pos_embed_computed_once_per_grid(rng):
     _, tp = _predictors(13, "t_v2", seed=9)
     x = np.stack(_images(rng, [(45, 77)])).astype(np.float32) / 255.0
     first = tp.predict_batch(x, 70, 70)
-    cached = dict(tp._grid_cache)
-    assert list(cached) == [("pos_embed", (5, 9))]
+    cached = dict(tp._grid_inputs)
+    assert list(cached) == [(5, 9)] and list(cached[(5, 9)]) == ["pos_embed"]
     again = tp.predict_batch(x, 70, 70)
-    assert tp._grid_cache[("pos_embed", (5, 9))] is cached[
-        ("pos_embed", (5, 9))]
+    assert tp.grid_inputs((5, 9))["pos_embed"] is cached[(5, 9)]["pos_embed"]
     np.testing.assert_array_equal(first, again)
     from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
     xin = preprocess_images(torch.from_numpy(x), 70, 70, tp.bundle.preprocess)
     with torch.no_grad():
         inline = tp.bundle.module(xin)
-        hoisted = tp.bundle.module(xin, pos_embed=cached[("pos_embed",
-                                                          (5, 9))])
+        hoisted = tp.bundle.module(xin, **cached[(5, 9)])
     torch.testing.assert_close(hoisted, inline, rtol=0, atol=0)
 
 

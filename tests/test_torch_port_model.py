@@ -118,6 +118,24 @@ def test_hoisted_bias_equals_inline():
     torch.testing.assert_close(hoisted, inline, rtol=0, atol=0)
 
 
+def test_beit_grid_inputs_hoist_under_the_cap(monkeypatch):
+    """grid_inputs hoists all `depth` biases while they fit under
+    BIAS_HOIST_CAP and asks for inline biases (None) above it."""
+    from depthmap_tpu_torch.models import beit
+    tm = torch_small_module(jax_small_variables(seed=7))
+    n = 4 * 6 + 1
+    need = SMALL["depth"] * SMALL["num_heads"] * n * n * 2   # bf16
+    monkeypatch.setattr(beit, "BIAS_HOIST_CAP", need)
+    hoisted = tm.pretrained.grid_inputs((4, 6), torch.bfloat16)["rel_bias"]
+    assert len(hoisted) == SMALL["depth"]
+    assert all(b.dtype == torch.bfloat16 and b.shape[-1] == n
+               for b in hoisted)
+    assert tm.pretrained.grid_inputs((4, 6))["rel_bias"] is None   # f32
+    monkeypatch.setattr(beit, "BIAS_HOIST_CAP", need - 1)
+    assert tm.pretrained.grid_inputs((4, 6), torch.bfloat16) == {
+        "rel_bias": None}
+
+
 def test_rel_pos_bias_table_resize_matches_jax():
     """The width-major bilinear table resize on a non-square window (1e-5:
     the JAX taps are f64-derived weights rounded to f32, torch's are f32).
