@@ -14,12 +14,16 @@ and prints no result):
   2. K1 (flash attention) against its plain version at the model paths'
      shapes, bf16 (tensor-core body) and f32 (CUDA-core body), with a
      padded-row bias (BEiT) and without (Depth Anything: 12 and 16 heads,
-     N up to 10765), on inputs that peak the softmax (K1_Q_SCALE); per
-     case the kernel's time, the plain version's, SDPA's on the same
-     tensors (the efficient backend, and the flash backend where it runs:
-     bf16, no mask; the port never calls either), the bound and the share
-     of it, and the error of three planted faults (a kv tile skipped, the
-     output scaled), each of which must exceed the bound;
+     N up to 10765; the MiDaS 3.0 ViTs at N = 577, where the last kv tile
+     holds one key, and 1009), on inputs that peak the softmax
+     (K1_Q_SCALE); per case the kernel's time (CUDA events over 20 calls;
+     and its device time from torch.profiler, which leaves out the host's
+     launch gaps that the events hold at the short shapes), the plain
+     version's, SDPA's on the same tensors, both ways (the efficient
+     backend, and the flash backend where it runs: bf16, no mask; the
+     port never calls either), the bound and the share of it, and the
+     error of three planted faults (a kv tile skipped, the output
+     scaled), each of which must exceed the bound;
   3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
      8 cases on a random depth map (the timed one: sharp, +-24 px) and one
      timed case on a smooth map, like the main path's; at 512x512 (the
@@ -36,7 +40,9 @@ and prints no result):
      path ran through them;
   5. whole-path numerics: one image through the predictor in f32 on the
      card (kernels, TF32 off) and on the CPU (plain versions):
-     dpt_beit_large_512 at 512x512, Depth Anything v2 Base at 518x518;
+     dpt_beit_large_512 at 512x512, Depth Anything v2 Base at 518x518,
+     dpt_large_384 and dpt_hybrid_384 at 384x384, midas_v21 at 384x384 and
+     midas_v21_small at 256x256;
   6. the default options' path, MAIN_RUNS timed runs: GenerationOptions()
      (Depth Anything v2 Base, net 448, 12 blocks, 768 wide, 12 heads,
      bf16) with naive-fill stereo, on the images of phase 4: K1 bias-free
@@ -46,13 +52,27 @@ and prints no result):
      24 K1 launches;
   8. the warp stereo fills (none, naive, naive_interpolating) at
      1080x1920, exponent 1 and 1.7, card against CPU byte for byte, ms
-     per eye beside K2's.
-Each model path (4, 6, 7) sets every kernel count to 0 just before each
-timed run and reads it just after.  With --profile, torch.profiler over one
-warm funnel run per path gives each path's device time and K1's / K2's
-share of it (K2: both stages).  The last lines: the card's name and power
+     per eye beside K2's;
+  9. this slice's path, MAIN_RUNS timed runs: dpt_large_384 at full width
+     (ViT-L/16: 24 blocks, 1024 wide, 16 heads, bf16) on the images of
+     phase 4 at net 384 with depth, normal map and heatmap: K1 at N = 577
+     (4 x 512^2, batched) and 1009 (1080p, serial), 24 launches a forward;
+     then one 512^2 image with the simple mesh (its OBJ must hold 512^2
+     vertices);
+ 10. the rest of the zoo on the same images and outputs, 2 timed runs
+     each: dpt_hybrid_384 (ResNet-50 + ViT-B/16, 12 K1 launches a
+     forward), midas_v21 and midas_v21_small (conv nets: 0 launches);
+ 11. the normal map at 1080x1920 on the maps of phase 8, every option
+     (pre-blur, Sobel kernel or np.gradient, post-blur, invert), card
+     against CPU within |d| <= 1 on <= 0.1% of the bytes, ms per map;
+     the heatmap's host time on the same maps.
+Each model path (4, 6, 7, 9, 10) sets every kernel count to 0 just before
+each timed run and reads it just after.  With --profile, torch.profiler
+over one warm funnel run per path gives each path's device time and K1's
+/ K2's share of it (K2: both stages).  The last lines: the card's name and power
 limit, a JSON line with each kernel's numbers (K1's launches: the sum over
-phases 4, 6 and 7, each path's count beside it; K2's: phase 4's sweeps),
+phases 4, 6, 7, 9 and 10, each path's count beside it; K2's: phase 4's
+sweeps),
 and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -124,6 +144,31 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """The device time of one call of ``fn``: its kernels' times summed by
+    torch.profiler over ``iters`` calls (after a warm one), per call.  A
+    short kernel's CUDA-event time (``cuda_ms``) holds the host's launch
+    gaps too when the host takes longer per call than the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if t is None else t
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / iters
 
 
 def phase_environment():
@@ -231,6 +276,15 @@ def phase_k1():
         ("bf16_b1_h16_n1370_none", bf16, 1, 16, 1370, None),
         ("bf16_b1_h16_n10765_none", bf16, 1, 16, 10765, None),
         ("f32_b1_h12_n1370_none", f32, 1, 12, 1370, None),
+        # MiDaS 3.0: ViT-L (16 heads) and the hybrid's ViT-B (12) at 512^2
+        # on net 384 (a 24 x 24 grid: N = 577, one key in the last kv
+        # tile) and at 1080p (672 x 384: 42 x 24, N = 1009); BEiT-384's
+        # biased call at N = 577 (rows padded to 592)
+        ("bf16_b4_h16_n577_none", bf16, 4, 16, 577, None),
+        ("bf16_b1_h16_n1009_none", bf16, 1, 16, 1009, None),
+        ("bf16_b4_h12_n577_none", bf16, 4, 12, 577, None),
+        ("bf16_b1_h12_n1009_none", bf16, 1, 12, 1009, None),
+        ("bf16_b1_h16_n577_shared", bf16, 1, 16, 577, 1),
     ]
     worst = 0.0
     main = None
@@ -249,28 +303,35 @@ def phase_k1():
         faults = k1_fault_errors(q, k, v, bias, want)
         del want
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 20)
+        def k1_call():
+            return fa.flash_attention_cuda(q, k, v, bias)
+        ms = cuda_ms(k1_call, 20)
+        dev_ms = device_ms(k1_call, 10)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
                            3)
         # SDPA on the same tensors: the efficient backend takes the
         # padded-row mask; the flash backend takes no mask and no f32
-        library = {}
+        library, library_dev = {}, {}
         backends = [("efficient", SDPBackend.EFFICIENT_ATTENTION)]
         if bias is None and dt == bf16:
             backends.append(("flash", SDPBackend.FLASH_ATTENTION))
         for lib, backend in backends:
-            with sdpa_kernel(backend):
-                library[lib] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=bias), 20)
+            def sdpa_call():
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=bias)
+            library[lib] = cuda_ms(sdpa_call, 20)
+            library_dev[lib] = device_ms(sdpa_call, 10)
         bound_ms, basis = k1_bound(b, h, n, n, bb, dts)
         log("2-k1", case=name, max_abs_err=f"{err:.3e}", tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            sdpa_efficient_ms=f"{library['efficient']:.4f}",
-            sdpa_flash_ms=(f"{library['flash']:.4f}" if "flash" in library
-                           else None),
+            ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}",
+            **{f"sdpa_{lib}_ms": f"{t:.4f}" for lib, t in library.items()},
+            **{f"sdpa_{lib}_device_ms": f"{t:.4f}"
+               for lib, t in library_dev.items()},
             bound_us=f"{bound_ms * 1e3:.1f}", bound_by=basis,
             share_of_bound=f"{bound_ms / ms:.3f}",
+            device_share_of_bound=f"{bound_ms / dev_ms:.3f}",
             **{f"fault_{f}_err": f"{e:.3e}" for f, e in faults.items()})
         if not err <= tol:
             raise AssertionError(f"K1 {name}: max abs err {err} > {tol}")
@@ -279,7 +340,7 @@ def phase_k1():
                                  f"the bound {tol}: {faults}")
         worst = max(worst, err)
         if main is None:
-            main = dict(ms=ms, plain_ms=plain_ms,
+            main = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                         library_ms=library["efficient"], bound_ms=bound_ms,
                         bound_by=basis)
         del q, k, v, bias, got
@@ -435,36 +496,48 @@ def profile_paths(cache, inp, paths):
 
 
 def backbone_shape(module):
-    """(blocks, width, heads) of a BEiT or DINOv2 backbone."""
+    """(blocks, width, heads) of a transformer backbone (BEiT, ViT, the
+    hybrid, DINOv2); (0, None, None) for a conv encoder."""
     bb = module.pretrained
-    blocks = bb.model.blocks if hasattr(bb, "model") else bb.blocks
+    blocks = bb.model.blocks if hasattr(bb, "model") else \
+        getattr(bb, "blocks", ())
+    if len(blocks) == 0:
+        return 0, None, None
     return (len(blocks), blocks[0].norm1.normalized_shape[0],
             blocks[0].attn.num_heads)
 
 
-def attention_tokens(pred, inp, img) -> int:
-    """N of the backbone's attention for one funnel image: the net input
-    the funnel's net size and the model's resize rule give, over the patch
-    size, plus the cls token."""
+def attention_tokens(pred, inp, img):
+    """N of the backbone's attention for one funnel image: the token grid
+    of the net input that the funnel's net size and the model's resize
+    rule give, plus the cls token; None for a conv model."""
     from depthmap_tpu_torch.pipeline.core import _funnel_net_size
     from depthmap_tpu_torch.pipeline.preprocess import net_input_size
     h, w = img.shape[:2]
     nw, nh = _funnel_net_size(inp, w, h)
     iw, ih = net_input_size(w, h, nw, nh, pred.bundle.preprocess)
-    ps = pred.bundle.module.pretrained.patch_size
-    return (ih // ps) * (iw // ps) + 1
+    bb = pred.bundle.module.pretrained
+    if hasattr(bb, "grid_for"):
+        gh, gw = bb.grid_for((ih, iw))
+    elif hasattr(bb, "patch_size"):
+        gh, gw = ih // bb.patch_size, iw // bb.patch_size
+    else:
+        return None
+    return gh * gw + 1
 
 
 def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
-                 profile=False, runs=MAIN_RUNS):
+                 profile=False, runs=MAIN_RUNS, mesh_image=None):
     """One path through PredictorCache and core_generation_funnel at full
     width (random weights, seed 0): a warm-up run, then ``runs`` timed
     runs, each with every kernel count set to 0 just before it and read
     just after.  ``groups``: (label, number of images) in input order, each
     timed to its last image's last output.  Each run must launch K1 once
-    per block and forward, and K2's sort and sweep ``k2_eyes`` times each;
-    every output's dtype and shape is checked.  Returns the last run's
-    (K1, K2 sweep) launches."""
+    per block and forward (0 times for a conv model), and K2's sort and
+    sweep ``k2_eyes`` times each; every output's dtype and shape is
+    checked.  With ``mesh_image``, one more run on it with the simple mesh
+    only, into a temporary directory: its OBJ must hold a vertex a pixel.
+    Returns the last timed run's (K1, K2 sweep) launches."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -483,7 +556,8 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
         pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tokens = sorted({attention_tokens(pred, inp, img) for img in images})
+    tokens = sorted({attention_tokens(pred, inp, img) for img in images}
+                    - {None})
 
     for run in range(runs):
         fa.flash_attention_cuda.launches = 0
@@ -512,6 +586,11 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
                 ana = results[(i, "red-cyan-anaglyph")]
                 assert sbs.dtype == np.uint8 and sbs.shape == (h, 2 * w, 3)
                 assert ana.dtype == np.uint8 and ana.shape == (h, w, 3)
+            for typ, ch in (("normalmap", 3), ("heatmap", 4)):
+                if getattr(inp, f"gen_{typ}"):
+                    out = results[(i, typ)]
+                    assert out.dtype == np.uint8 and out.shape == (h, w, ch), \
+                        (typ, out.dtype, out.shape)
         if k1 != blocks * forwards:
             raise AssertionError(f"{phase}: K1 launched {k1} times, "
                                  f"expected {blocks} x {forwards}")
@@ -532,6 +611,8 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
             s_total=f"{t_end - t_start:.4f}", k1_launches=k1,
             k2_launches=k2, k2_sort_launches=k2_sort,
             max_memory_allocated_GiB=f"{peak_gib:.3f}")
+    if mesh_image is not None:
+        drive_mesh(phase, inp, mesh_image, cache, blocks)
     if profile:
         paths, first = [], 0
         for label, count in groups:
@@ -542,6 +623,44 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
     del pred
     torch.cuda.empty_cache()
     return k1, k2
+
+
+def drive_mesh(phase, inp, image, cache, blocks):
+    """The simple mesh of one image through the funnel (the raw map goes to
+    the host: serial path, one forward), written to a temporary directory
+    and read back: a vertex a pixel, K1 launched once per block."""
+    import dataclasses
+    import tempfile
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.pipeline.core import core_generation_funnel
+    h, w = image.shape[:2]
+    mesh_inp = dataclasses.replace(inp, do_output_depth=False,
+                                   gen_normalmap=False, gen_heatmap=False,
+                                   gen_stereo=False, gen_simple_mesh=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa.flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = list(core_generation_funnel(tmp, [image], None, None, mesh_inp,
+                                          predictor_cache=cache))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = fa.flash_attention_cuda.launches
+        assert [typ for _, typ, _ in out] == ["simple_mesh"], out
+        path = out[0][2]
+        with open(path) as f:
+            lines = f.readlines()
+        verts = sum(1 for line in lines if line.startswith("v "))
+        faces = sum(1 for line in lines if line.startswith("f "))
+        log(phase, mesh=os.path.basename(path), vertices=verts, faces=faces,
+            obj_MB=f"{os.path.getsize(path) / 1e6:.1f}",
+            s_mesh=f"{seconds:.3f}", k1_launches=k1)
+    if verts != h * w or faces == 0:
+        raise AssertionError(f"{phase}: the mesh has {verts} vertices and "
+                             f"{faces} faces, expected {h * w} vertices")
+    if k1 != blocks:
+        raise AssertionError(f"{phase}: the mesh run launched K1 {k1} "
+                             f"times, expected {blocks}")
 
 
 def phase_main_path(profile: bool = False):
@@ -581,6 +700,98 @@ def phase_long_n(profile: bool = False):
                             net_size_match=True)
     return drive_funnel("7-long-n", inp, images, [("1080p_serial", 1)],
                         forwards=1, k2_eyes=0, profile=profile, runs=2)
+
+
+def phase_dpt_large(profile: bool = False):
+    """This slice's path: dpt_large_384 with depth, normal map and
+    heatmap on the images of phase 4 at net 384: 4 x 512^2 batched (N =
+    577), one 1080p image serial (672 x 384, N = 1009); then the simple
+    mesh of one 512^2 image."""
+    from depthmap_tpu_torch.options import GenerationOptions
+    images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
+    inp = GenerationOptions(compute_device="GPU", model_type="dpt_large_384",
+                            net_width=384, net_height=384,
+                            gen_normalmap=True, gen_heatmap=True)
+    k1, _ = drive_funnel("9-dpt-large", inp, images,
+                         [("512_batched", 4), ("1080p_serial", 1)],
+                         forwards=2, k2_eyes=0, profile=profile,
+                         mesh_image=images[0])
+    return k1
+
+
+def phase_zoo(profile: bool = False):
+    """dpt_hybrid_384, midas_v21 and midas_v21_small at their default net
+    sizes on the images of phase 4, depth, normal map and heatmap, 2 timed
+    runs each: K1 12 times a forward for the hybrid, never for the conv
+    nets."""
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.registry import get_default_net_size
+    images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
+    launches = {}
+    for name in ("dpt_hybrid_384", "midas_v21", "midas_v21_small"):
+        nw, nh = get_default_net_size(name)
+        inp = GenerationOptions(compute_device="GPU", model_type=name,
+                                net_width=nw, net_height=nh,
+                                gen_normalmap=True, gen_heatmap=True)
+        launches[name], _ = drive_funnel(
+            f"10-{name}", inp, images,
+            [("512_batched", 4), ("1080p_serial", 1)], forwards=2,
+            k2_eyes=0, profile=profile, runs=2)
+    return launches
+
+
+def phase_normalmap():
+    """The normal map at 1080 x 1920 on the random and the smooth map of
+    phase 8, every option, card against the port's CPU: |d| <= 1 on <=
+    0.1% of the bytes (the JAX package's bound against the reference);
+    ms per map on the card (CUDA events, the map already on the card)."""
+    import itertools
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.ops.normalmap import create_normalmap
+    rng = np.random.default_rng(8)
+    rows, w = 1080, 1920
+    yy, xx = np.mgrid[0:rows, 0:w]
+    smooth = 0.5 + 0.5 * np.sin(xx / 97.0) * np.cos(yy / 61.0)
+    maps = {k: (d * 65535).astype(np.uint16) for k, d in
+            (("random", rng.random((rows, w))), ("smooth", smooth))}
+    on_card = {k: torch.from_numpy(d.astype(np.float32)).cuda()
+               for k, d in maps.items()}
+    all_ms = []
+    for pre, sob, post in itertools.product((None, 3, 5), (None, 1, 3, 5),
+                                            (None, 3)):
+        worst, share, ms = 0, 0.0, []
+        for kind, inv in itertools.product(maps, (False, True)):
+            args = (pre, sob, post, inv)
+            got = create_normalmap(on_card[kind], *args).cpu().numpy()
+            want = create_normalmap(maps[kind], *args).numpy()
+            d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            worst = max(worst, int(d.max()))
+            share = max(share, float((d > 0).mean()))
+            ms.append(cuda_ms(lambda: create_normalmap(on_card[kind], *args),
+                              5))
+        all_ms += ms
+        log("11-normalmap", pre_blur=pre, sobel=sob, post_blur=post,
+            max_abs_diff=worst, share_differing=f"{share:.2e}",
+            ms_per_map=f"{min(ms):.3f}-{max(ms):.3f}")
+        if worst > 1 or share > 1e-3:
+            raise AssertionError(
+                f"normal map pre={pre} sobel={sob} post={post}: card vs CPU "
+                f"|d| {worst}, {share:.2e} of the bytes differ")
+    log("11-normalmap", maps=len(all_ms),
+        ms_mean=f"{sum(all_ms) / len(all_ms):.3f}",
+        ms_min=f"{min(all_ms):.3f}", ms_max=f"{max(all_ms):.3f}")
+    # the funnel's other derived output, for scale: the heatmap is numpy
+    # on the host (byte-equal to the JAX package's)
+    from depthmap_tpu_torch.ops.heatmap import colorize
+    host_ms = []
+    for d in maps.values():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            colorize(d, cmap="inferno")
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    log("11-heatmap", shape=f"{rows}x{w}", host_ms_min=f"{min(host_ms):.1f}",
+        host_ms_max=f"{max(host_ms):.1f}")
 
 
 def phase_warp_fills(k2_ms: float):
@@ -630,15 +841,18 @@ def phase_warp_fills(k2_ms: float):
 
 def phase_numerics():
     """Whole-path f32 numerics, card (kernels, TF32 off) against CPU (plain
-    versions): dpt_beit_large_512 at 512^2 (K1 with bias, 24 launches) and
-    Depth Anything v2 Base at 518^2 (K1 bias-free at N = 1370, 12)."""
+    versions): dpt_beit_large_512 at 512^2 (K1 with bias, 24 launches),
+    Depth Anything v2 Base at 518^2 (K1 bias-free at N = 1370, 12),
+    dpt_large_384 and dpt_hybrid_384 at 384^2 (N = 577: 24 and 12),
+    midas_v21 at 384^2 and midas_v21_small at 256^2 (no attention: 0)."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.models.build import build_model
     from depthmap_tpu_torch.models.weights import init_random_
     from depthmap_tpu_torch.ops import flash_attention as fa
     from depthmap_tpu_torch.pipeline.depth import DepthPredictor
-    for mt, size, launches in ((1, 512, 24), (13, 518, 12)):
+    for mt, size, launches in ((1, 512, 24), (13, 518, 12), (3, 384, 24),
+                               (4, 384, 12), (5, 384, 0), (6, 256, 0)):
         sd = init_random_(build_model(mt).module, seed=4).state_dict()
         img = _test_images(5, [(size, size)])[0].astype(np.float32) / 255.0
         gpu = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
@@ -683,6 +897,9 @@ def main() -> int:
         phase_default_options(profile)
     k1_by_path["long_n_da_v2_large"], _ = phase_long_n(profile)
     phase_warp_fills(k2["ms"])
+    k1_by_path["dpt_large_384"] = phase_dpt_large(profile)
+    k1_by_path.update(phase_zoo(profile))
+    phase_normalmap()
     import torch
 
     def row(name, source, replaces, launches, err, t, **extra):
@@ -694,11 +911,11 @@ def main() -> int:
                 "library_ms": t["library_ms"], **extra}
     print(smi)
     print(json.dumps({"kernels": [
-        # K1's launches: the sum over the three model paths (each counted
-        # from 0 in its own last timed run), per path beside it
+        # K1's launches: the sum over the model paths (each counted from 0
+        # in its own last timed run), per path beside it
         row("flash_attention", K1_SOURCE, K1_REPLACES,
             sum(k1_by_path.values()), k1_err, k1,
-            launches_by_path=k1_by_path),
+            device_ms=k1["device_ms"], launches_by_path=k1_by_path),
         # K2's launches: its sweep's, one per eye of the BEiT path's
         # polylines stereo (each eye also launched one sort, checked there)
         row("polylines", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2),

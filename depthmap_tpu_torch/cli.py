@@ -4,21 +4,22 @@
         --stereo
 
 Same flags as ``depthmap_tpu/frontends/cli.py``; every yielded artifact is
-saved into the output directory with sequence-numbered names.  Options the
-port does not have yet (video, the REST server, the web UI, and the
-derived outputs the funnel rejects) raise NotImplementedError.  PIL is
+saved into the output directory with sequence-numbered names (the simple
+mesh is written there by the funnel).  Options the port does not have yet
+(video, the REST server, the web UI, and the outputs the funnel rejects)
+raise NotImplementedError.  PIL is
 imported only to load and save images.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import re
 import sys
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
+from depthmap_tpu_torch.io.image import get_unique_filename
 from depthmap_tpu_torch.options import GenerationOptions
 from depthmap_tpu_torch.registry import (MODELS_BY_NAME, get_default_net_size,
                                          resolve_model_type)
@@ -124,44 +125,18 @@ def collect_inputs(paths: List[str]) -> List[str]:
     return files
 
 
-def get_next_sequence_number(outpath: str,
-                             basename: Optional[str] = None) -> int:
-    """Smallest unused sequence number in outpath
-    (`basename-NNNN[-suffix]`)."""
-    result = -1
-    if not os.path.isdir(outpath):
-        return 0
-    pat = re.compile(r"^(?:" + re.escape(basename) + r"-)?(\d+)" if basename
-                     else r"^(\d+)")
-    for fn in os.listdir(outpath):
-        m = pat.match(os.path.splitext(fn)[0])
-        if m:
-            result = max(result, int(m.group(1)))
-    return result + 1
-
-
-def get_unique_filename(outpath: str, basename: str, ext: str,
-                        suffix: str = "") -> str:
-    basecount = get_next_sequence_number(outpath, basename)
-    if basecount > 0:
-        basecount -= 1
-    if suffix != "":
-        suffix = f"-{suffix}"
-    for i in range(500):
-        fullfn = os.path.join(outpath,
-                              f"{basename}-{basecount + i:04}{suffix}.{ext}")
-        if not os.path.exists(fullfn):
-            return fullfn
-    return os.path.join(outpath, f"{basename}-99999{suffix}.{ext}")
-
-
 def save_result(outpath: str, basename: str, output_type: str,
-                result: np.ndarray) -> str:
-    """Save one funnel output as PNG (uint16 depth as 16-bit grayscale)."""
+                result) -> str:
+    """Save one funnel output as PNG (uint16 depth as 16-bit grayscale);
+    an output that is already a saved file (the simple mesh's OBJ path)
+    is passed through."""
     from PIL import Image
     os.makedirs(outpath, exist_ok=True)
-    suffix = {"depth": "depth", "concat_depth": "concat_depth"}.get(
-        output_type, output_type)
+    if isinstance(result, str):
+        return result
+    suffix = {"depth": "depth", "concat_depth": "concat_depth",
+              "normalmap": "normal", "heatmap": "heatmap"}.get(
+                  output_type, output_type)
     fn = get_unique_filename(outpath, basename, "png", suffix)
     Image.fromarray(np.asarray(result)).save(fn)   # uint16 -> mode I;16
     return fn

@@ -101,6 +101,8 @@ class BeitModel(nn.Module):
 class BeitBackbone(nn.Module):
     """Returns the token sequences (incl. cls) at the hook depths."""
 
+    spatial_feats = 0     # leading features that are already NCHW maps
+
     def __init__(self, embed_dim: int = 1024, depth: int = 24,
                  num_heads: int = 16, hooks: Sequence[int] = (5, 11, 17, 23),
                  train_img_size: int = 512, patch_size: int = 16):
@@ -117,6 +119,10 @@ class BeitBackbone(nn.Module):
     @property
     def num_heads(self) -> int:
         return self.model.num_heads
+
+    def grid_for(self, input_hw: Tuple[int, int]) -> Tuple[int, int]:
+        """The token grid of an (H, W) input."""
+        return input_hw[0] // self.patch_size, input_hw[1] // self.patch_size
 
     def block_bias(self, i: int, window: Tuple[int, int],
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:

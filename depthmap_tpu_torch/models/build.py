@@ -1,7 +1,12 @@
 """Model construction: id/name -> (torch module, preprocess cfg, output
 semantics).  Port of ``depthmap_tpu/models/build.py`` for the model types
-this port has: 1 (dpt_beit_large_512), 2 (dpt_beit_large_384), 11 (Depth
-Anything v1) and 12-14 (Depth Anything v2 small / base / large)."""
+this port has: 1-4 (the DPT models: BEiT-L 512 / 384, ViT-L 384, the
+ViT-B + ResNet-50 hybrid), 5-6 (midas_v21, midas_v21_small), 11 (Depth
+Anything v1) and 12-14 (Depth Anything v2 small / base / large).
+
+Every module takes NCHW input and offers ``grid_inputs(input_hw, dtype)``
+(what it computes from its parameters for an input size, passed to its
+forward as keywords) and ``head_to_f32()``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -18,10 +23,6 @@ from depthmap_tpu_torch.registry import MODELS, resolve_model_type
 # where each model type not ported yet stands in ROADMAP.md
 _ROADMAP = {
     0: "Queue 1 item 10 (LeReS + Boost)",
-    3: "Queue 1 item 8 (rest of the MiDaS/DPT zoo)",
-    4: "Queue 1 item 8 (rest of the MiDaS/DPT zoo)",
-    5: "Queue 1 item 8 (rest of the MiDaS/DPT zoo)",
-    6: "Queue 1 item 8 (rest of the MiDaS/DPT zoo)",
     7: "Queue 1 item 9 (ZoeDepth)",
     8: "Queue 1 item 9 (ZoeDepth)",
     9: "Queue 1 item 9 (ZoeDepth)",
@@ -43,7 +44,17 @@ class ModelBundle:
 def build_model(model_type) -> ModelBundle:
     mt = resolve_model_type(model_type)
     spec = MODELS[mt]
-    if mt in (1, 2):  # DPT BEiT-L
+    if mt in (5, 6):  # midas_v21, midas_v21_small
+        from depthmap_tpu_torch.models import midas_net
+        module = midas_net.build_midas_v21() if mt == 5 else \
+            midas_net.build_midas_v21_small()
+        return ModelBundle(
+            spec=spec, module=module,
+            preprocess=PreprocessCfg(resize_mode="upper_bound",
+                                     mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                                     swap_channels=True),
+            upsample_mode="bicubic", upsample_align_corners=False)
+    if mt in (1, 2, 3, 4):  # DPT: BEiT-L, ViT-L, the hybrid
         from depthmap_tpu_torch.models.dpt import build_dpt
         return ModelBundle(
             spec=spec, module=build_dpt(spec.variant),

@@ -10,8 +10,9 @@ index 2 is the identity), ``scratch.layer{i}_rn`` (3x3, no bias),
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -90,6 +91,14 @@ class DepthAnything(nn.Module):
         """Keep the final 1x1 conv in f32 (call after casting the model to
         a reduced dtype: its weights then hold the rounded values)."""
         self.depth_head.scratch.output_conv2[2].float()
+
+    def grid_inputs(self, input_hw: Tuple[int, int],
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The forward's keyword inputs for an (H, W) input: the encoder's
+        resized position embeddings."""
+        ps = self.pretrained.patch_size
+        return self.pretrained.grid_inputs(
+            (input_hw[0] // ps, input_hw[1] // ps), dtype)
 
     def forward(self, x, pos_embed=None):
         feats, grid = self.pretrained(x, pos_embed=pos_embed)

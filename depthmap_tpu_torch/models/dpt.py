@@ -1,22 +1,21 @@
-"""DPT depth model over a BEiT backbone (NCHW).
+"""DPT depth model over a BEiT, ViT or hybrid backbone (NCHW).
 
 Port of ``depthmap_tpu/models/dpt.py`` (ProjectReadout, Reassemble,
 DPTDepthModel, build_dpt) in the reference checkpoint layout: the
 backbone under ``pretrained.model``, the reassemble stages under
 ``pretrained.act_postprocess{1..4}`` (indices 0 readout, 3 1x1 proj,
-4 resize), the decoder under ``scratch``.
+4 resize), the decoder under ``scratch``.  The hybrid's first two
+features are ResNet maps that pass through without a reassemble (its
+``act_postprocess1/2`` hold no parameters, so the module has none).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from depthmap_tpu_torch.models.beit import BeitBackbone, beit_large
 from depthmap_tpu_torch.models.midas_blocks import Scratch
-from depthmap_tpu_torch.ops.resize import scale2x
 
 
 class ProjectReadout(nn.Module):
@@ -50,56 +49,58 @@ def reassemble(dim: int, out_ch: int, level: int) -> nn.Sequential:
 
 class DPTDepthModel(nn.Module):
     """Backbone -> reassemble -> fusion -> head: (B, 3, H, W) -> (B, H, W)
-    raw disparity, non-negative.  The last head conv runs in f32 whatever
-    the compute dtype: a bf16 output would quantize the 16-bit depth map to
-    ~256 levels."""
+    raw disparity, non-negative."""
 
-    def __init__(self, backbone: BeitBackbone,
+    def __init__(self, backbone: nn.Module,
                  reassemble_channels: Sequence[int] = (256, 512, 1024, 1024),
                  features: int = 256):
         super().__init__()
         self.pretrained = backbone
         dim = backbone.model.cls_token.shape[-1]
         for i, ch in enumerate(reassemble_channels):
-            setattr(self.pretrained, f"act_postprocess{i + 1}",
-                    reassemble(dim, ch, i))
+            if i >= backbone.spatial_feats:
+                setattr(self.pretrained, f"act_postprocess{i + 1}",
+                        reassemble(dim, ch, i))
         self.scratch = Scratch(reassemble_channels, features)
+
+    def grid_inputs(self, input_hw: Tuple[int, int],
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The forward's keyword inputs for an (H, W) input, computed from
+        the parameters alone (the backbone's per-grid hoists)."""
+        return self.pretrained.grid_inputs(self.pretrained.grid_for(input_hw),
+                                           dtype)
 
     def head_to_f32(self) -> None:
         """Keep the final 1x1 conv in f32 (call after casting the model to
         a reduced dtype: its weights then hold the rounded values)."""
-        self.scratch.output_conv[4].float()
+        self.scratch.head_to_f32()
 
-    def forward(self, x, rel_bias=None):
-        feats, (gh, gw) = self.pretrained(x, rel_bias=rel_bias)
+    def forward(self, x, **grid_inputs):
+        """``grid_inputs``: the backbone's (``rel_bias`` for BEiT,
+        ``pos_embed`` for ViT), made by the backbone when not given."""
+        feats, (gh, gw) = self.pretrained(x, **grid_inputs)
         layers = []
         for i, tokens in enumerate(feats):
+            if i < self.pretrained.spatial_feats:
+                layers.append(tokens)
+                continue
             post = getattr(self.pretrained, f"act_postprocess{i + 1}")
             h = post[0](tokens)
             h = h.transpose(1, 2).reshape(h.shape[0], h.shape[2], gh, gw)
             layers.append(post[3:](h))
-        s = self.scratch
-        r1 = s.layer1_rn(layers[0])
-        r2 = s.layer2_rn(layers[1])
-        r3 = s.layer3_rn(layers[2])
-        r4 = s.layer4_rn(layers[3])
-        p4 = s.refinenet4(r4, size=r3.shape[2:])
-        p3 = s.refinenet3(p4, r3, size=r2.shape[2:])
-        p2 = s.refinenet2(p3, r2, size=r1.shape[2:])
-        p1 = s.refinenet1(p2, r1)
-        out = s.output_conv[0](p1)
-        out = scale2x(out, "bilinear", align_corners=True)
-        out = F.relu(s.output_conv[2](out))
-        head = s.output_conv[4]
-        out = F.relu(head(out.to(head.weight.dtype)))
-        return out[:, 0]
+        return self.scratch(layers)
 
 
 def build_dpt(variant: str) -> DPTDepthModel:
-    """variant in {beitl16_512, beitl16_384}."""
+    """variant in {beitl16_512, beitl16_384, vitl16_384, vitb_rn50_384}."""
+    from depthmap_tpu_torch.models import beit, vit
     if variant == "beitl16_512":
-        return DPTDepthModel(beit_large(512))
+        return DPTDepthModel(beit.beit_large(512))
     if variant == "beitl16_384":
-        return DPTDepthModel(beit_large(384))
-    raise NotImplementedError(
-        f"DPT variant {variant!r} is not ported yet (ROADMAP Queue 1 item 8)")
+        return DPTDepthModel(beit.beit_large(384))
+    if variant == "vitl16_384":
+        return DPTDepthModel(vit.vit_large_384())
+    if variant == "vitb_rn50_384":
+        return DPTDepthModel(vit.HybridVitBackbone(),
+                             reassemble_channels=(256, 512, 768, 768))
+    raise ValueError(f"Unknown DPT variant {variant!r}")

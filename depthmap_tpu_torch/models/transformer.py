@@ -1,11 +1,12 @@
-"""Transformer building blocks of the BEiT and DINOv2 backbones.
+"""Transformer building blocks of the BEiT, ViT and DINOv2 backbones.
 
 Port of ``depthmap_tpu/models/transformer.py`` in the reference checkpoint
 layouts.  BEiT (timm): ``patch_embed.proj``, ``blocks.{i}.norm1``,
 ``attn.qkv`` (no bias), ``attn.q_bias`` / ``attn.k_bias`` (zero, not
 trained) / ``attn.v_bias``, ``attn.proj``, ``gamma_1``, ``norm2``,
-``mlp.fc1`` / ``mlp.fc2``, ``gamma_2``.  DINOv2: ``attn.qkv`` with a plain
-bias, ``ls1.gamma`` / ``ls2.gamma`` for the layer scales, the rest as BEiT.
+``mlp.fc1`` / ``mlp.fc2``, ``gamma_2``.  ViT (timm): ``attn.qkv`` with a
+plain bias and no layer scale, the rest as BEiT.  DINOv2: the ViT block
+with ``ls1.gamma`` / ``ls2.gamma`` for the layer scales.
 """
 from __future__ import annotations
 
@@ -110,6 +111,22 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
         out = attention(qkv[0], qkv[1], qkv[2])
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class VitBlock(nn.Module):
+    """Pre-norm ViT block (timm, MiDaS 3.0's ViT-L and hybrid): LayerNorm
+    eps 1e-6, the plain qkv bias, exact-GELU MLP, no layer scale."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
 
 
 class LayerScale(nn.Module):

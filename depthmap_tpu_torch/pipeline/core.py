@@ -5,13 +5,17 @@ Port of ``depthmap_tpu/pipeline/core.py``: a generator yielding
 the JAX funnel yields PIL images: 'depth' is (H, W) uint16, 'concat_depth'
 and the stereo modes are uint8 RGB.
 
-Ported models: dpt_beit_large_512 / _384 and Depth Anything v1 / v2
-(the default options' model, Depth Anything v2 Base).  Ported outputs:
-depth (plain, inverted, concatenated), depth_prediction and stereo with
-all five fills.  Boost, normal map, heatmap, simple mesh, background
-removal and the inpainted mesh raise NotImplementedError naming their
-ROADMAP items.  ``compute_device`` picks the device: "GPU" is CUDA
-(and raises without it), "CPU" is the host.
+Ported models: the MiDaS / DPT zoo (types 1-6) and Depth Anything v1 /
+v2 (the default options' model, Depth Anything v2 Base).  Ported outputs:
+depth (plain, inverted, concatenated), depth_prediction, stereo with all
+five fills, the normal map ((H, W, 3) uint8, computed on the funnel's
+device), the heatmap ((H, W, 4) uint8) and the simple mesh (the path of
+the OBJ written).  Boost, background removal and the inpainted mesh raise
+NotImplementedError naming their ROADMAP items.  ``compute_device`` picks
+the device: "GPU" is CUDA (and raises without it), "CPU" is the host.
+A call that passes no ``predictor_cache`` uses the module's
+``_default_cache``, so the model stays on its device between calls
+unless ``ops["keepmodels"]`` is false.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch
 
 from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.ops import numerics
+from depthmap_tpu_torch.ops.heatmap import colorize
+from depthmap_tpu_torch.ops.normalmap import create_normalmap
 from depthmap_tpu_torch.ops.stereo import create_stereoimages
 from depthmap_tpu_torch.options import GenerationOptions
 from depthmap_tpu_torch.pipeline.depth import DepthPredictor
@@ -30,9 +36,6 @@ from depthmap_tpu_torch.registry import resolve_model_type
 
 _NOT_PORTED = {
     "boost": "Queue 1 item 10 (LeReS + Boost)",
-    "gen_normalmap": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
-    "gen_heatmap": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
-    "gen_simple_mesh": "Queue 1 item 6 (normal map, heatmap, simple mesh)",
     "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
     "gen_inpainted_mesh": "Queue 1 item 13 (3D photo)",
 }
@@ -57,8 +60,16 @@ class PredictorCache:
         return self._predictor
 
     def release(self):
+        """Drop the predictor, so its device memory frees."""
         self._predictor = None
         self._key = None
+
+    def unload(self):
+        """The frontends' name for ``release``."""
+        self.release()
+
+
+_default_cache = PredictorCache()
 
 
 def ingest_custom_depthmap(dp, target_w: int, target_h: int) -> np.ndarray:
@@ -134,7 +145,7 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         if getattr(inp, opt):
             raise NotImplementedError(
                 f"option {opt} is not ported yet: ROADMAP.md {item}")
-    cache = predictor_cache or PredictorCache()
+    cache = predictor_cache or _default_cache
     ops = ops or {}
     dev = resolve_device(
         "cpu" if str(inp.compute_device).upper() == "CPU" else "cuda")
@@ -149,11 +160,12 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
 
     # Batched pre-pass: images that share a shape and need no host-side raw
     # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH.
-    # A failure raises: it does not fall back to the serial loop.
+    # A failure raises: it does not fall back to the serial loop.  The
+    # raw map goes to the host for depth_prediction and the simple mesh.
+    raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh
     fused: Dict[int, np.ndarray] = {}
     rgb_cache: Dict[int, np.ndarray] = {}
-    if predictor is not None and not inp.do_output_depth_prediction \
-            and len(inputimages) > 1:
+    if predictor is not None and not raw_to_host and len(inputimages) > 1:
         chunk = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH", "8"))
         groups: Dict[Tuple[int, int], list] = {}
         if chunk >= 2:
@@ -186,24 +198,26 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         h, w = img.shape[:2]
 
         img_output = None
+        depthi = None      # the map the simple mesh is made from
         if inputdepthmaps[count] is not None:
-            out = ingest_custom_depthmap(inputdepthmaps[count], w, h)
-            img_output = _convert_to_i16_host(out)
+            depthi = ingest_custom_depthmap(inputdepthmaps[count], w, h)
+            img_output = _convert_to_i16_host(depthi)
         elif count in fused:
             img_output = fused.pop(count)
         else:
             net_w, net_h = _funnel_net_size(inp, w, h)
             img01 = img.astype(np.float32) / 255.0
-            if not inp.do_output_depth_prediction:
+            if not raw_to_host:
                 img_output = predictor.predict_finalized(
                     img01, net_w, net_h, clip=inp.clipdepth,
                     clip_mode=inp.clipdepth_mode,
                     clip_far=inp.clipdepth_far,
                     clip_near=inp.clipdepth_near)
             else:
-                raw = predictor.predict(img01, net_w, net_h)
+                raw = depthi = predictor.predict(img01, net_w, net_h)
                 invert = predictor.raw_prediction_invert
-                if abs(raw.max() - raw.min()) > np.finfo("float").eps:
+                if inp.do_output_depth_prediction and \
+                        abs(raw.max() - raw.min()) > np.finfo("float").eps:
                     yield count, "depth_prediction", -raw if invert else \
                         np.copy(raw)
                 img_output = numerics.finalize_i16(
@@ -235,6 +249,31 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 inp.stereo_fill_algo, device=dev)
             for c, simg in enumerate(stereoimages):
                 yield count, inp.stereo_modes[c], simg
+
+        if inp.gen_normalmap:
+            yield count, "normalmap", create_normalmap(
+                img_output,
+                inp.normalmap_pre_blur_kernel if inp.normalmap_pre_blur
+                else None,
+                inp.normalmap_sobel_kernel if inp.normalmap_sobel else None,
+                inp.normalmap_post_blur_kernel if inp.normalmap_post_blur
+                else None,
+                inp.normalmap_invert, device=dev).cpu().numpy()
+
+        if inp.gen_heatmap:
+            yield count, "heatmap", colorize(img_output, cmap="inferno")
+
+        if inp.gen_simple_mesh:
+            from depthmap_tpu_torch.pipeline.mesh import \
+                create_simple_mesh_output
+            yield count, "simple_mesh", create_simple_mesh_output(
+                img, depthi, outpath,
+                model_type=resolve_model_type(inp.model_type)
+                if not inputdepthmaps_complete else -1,
+                boost=inp.boost,
+                custom_depthmap=inputdepthmaps[count] is not None,
+                occlude=inp.simple_mesh_occlude,
+                spherical=inp.simple_mesh_spherical)
 
     if not bool(ops.get("keepmodels", True)):
         cache.release()

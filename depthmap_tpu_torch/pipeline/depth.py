@@ -77,17 +77,19 @@ class DepthPredictor:
         module.to(device=self.device, dtype=self.compute_dtype)
         module.head_to_f32()
         module.eval()
-        # grid -> the backbone's per-grid forward inputs (grid_inputs)
+        # net input (H, W) -> the module's forward inputs (grid_inputs)
         self._grid_inputs: Dict[Tuple[int, int], Dict[str, Any]] = {}
 
     # -- inference ---------------------------------------------------------
-    def grid_inputs(self, grid: Tuple[int, int]) -> Dict[str, Any]:
-        """The backbone's per-grid keyword inputs of the module's forward,
-        computed on the first forward at ``grid`` and kept."""
-        if grid not in self._grid_inputs:
-            self._grid_inputs[grid] = self.bundle.module.pretrained \
-                .grid_inputs(grid, self.compute_dtype)
-        return self._grid_inputs[grid]
+    def grid_inputs(self, input_hw: Tuple[int, int]) -> Dict[str, Any]:
+        """The module's keyword inputs for a net input of ``input_hw``
+        (what it computes from its parameters per grid; the conv models
+        have none), computed on the first forward at that size and
+        kept."""
+        if input_hw not in self._grid_inputs:
+            self._grid_inputs[input_hw] = self.bundle.module.grid_inputs(
+                input_hw, self.compute_dtype)
+        return self._grid_inputs[input_hw]
 
     @torch.no_grad()
     def _forward(self, imgs01: torch.Tensor, net_w: int, net_h: int,
@@ -96,10 +98,8 @@ class DepthPredictor:
         raw prediction at the input size."""
         x = preprocess_images(imgs01, net_w, net_h, self.bundle.preprocess,
                               resize_mode)
-        ps = self.bundle.module.pretrained.patch_size
-        grid = (x.shape[2] // ps, x.shape[3] // ps)
         pred = self.bundle.module(x.to(self.compute_dtype),
-                                  **self.grid_inputs(grid))
+                                  **self.grid_inputs(tuple(x.shape[2:])))
         pred = pred[:, None].to(torch.float32)
         out_h, out_w = imgs01.shape[1:3]
         return interpolate(pred, (out_h, out_w), self.bundle.upsample_mode,

@@ -16,9 +16,12 @@ q is drawn 4x and v 1/4x N(0, 1): the logits have std 4, so the softmax
 is peaked and the outputs (up to ~1.4) stand far above the bound where a
 kernel errs; each case also checks that the answers of planted faults (a
 kv tile skipped, the output scaled by 0.8) break the bound.
-K2 and the warp stereo fills are byte-exact.  A small Depth Anything
-forward in f32 on the card (K1 bias-free, TF32 off) holds to 1e-3 of the
-CPU map's range, the bound chip_smoke.py holds the whole path to.
+K2 and the warp stereo fills are byte-exact.  Small Depth Anything, ViT
+and hybrid DPT forwards in f32 on the card (K1 bias-free, TF32 off), and
+the conv nets midas_v21 / midas_v21_small (no K1), hold to 1e-3 of the CPU
+map's range, the bound chip_smoke.py holds the whole path to.  The normal
+map on the card holds to its CPU twin within |d| <= 1 on <= 0.1% of the
+bytes.
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ from depthmap_tpu_torch.ops import stereo as S
 # The bias-free cases at 6, 12 and 16 heads are Depth Anything's calls:
 # v2 Small / Base / Large at N = 1025 (512^2 at net 448), 1370 (518^2),
 # 1825 (1080p at net 448) and 10765 (1080p with net_size_match), with
-# ragged last kv tiles at 1370, 1825 and 10765.
+# ragged last kv tiles at 1370, 1825 and 10765.  The MiDaS 3.0 ViTs (16
+# heads for ViT-L, 12 for the hybrid's ViT-B) run N = 577 (a 24 x 24 grid:
+# one key in the last kv tile) and 1009 (1080p at net 384: 42 x 24), and
+# BEiT-384 N = 577 with a bias (rows padded to 592).
 K1_CASES = {
     "bf16_shared_1025": (torch.bfloat16, 4, 16, 1025, 1025, "shared", None),
     "bf16_shared_1793": (torch.bfloat16, 1, 16, 1793, 1793, "shared", None),
@@ -55,6 +61,12 @@ K1_CASES = {
                             None),
     "f32_none_h12_1370": (torch.float32, 1, 12, 1370, 1370, None, None),
     "f32_none_h6_1825": (torch.float32, 1, 6, 1825, 1825, None, None),
+    "bf16_none_h16_b4_577": (torch.bfloat16, 4, 16, 577, 577, None, None),
+    "bf16_none_h16_1009": (torch.bfloat16, 1, 16, 1009, 1009, None, None),
+    "bf16_none_h12_b4_577": (torch.bfloat16, 4, 12, 577, 577, None, None),
+    "bf16_none_h12_1009": (torch.bfloat16, 1, 12, 1009, 1009, None, None),
+    "bf16_shared_h16_577": (torch.bfloat16, 1, 16, 577, 577, "shared",
+                            None),
 }
 
 
@@ -423,3 +435,93 @@ def test_small_depth_anything_card_matches_cpu():
     assert rng_ > 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
                                atol=1e-3 * rng_)
+
+
+def _small_zoo_model(kind: str) -> torch.nn.Module:
+    """Small stand-ins of types 3-6: ViT and hybrid DPTs with embed 128 and
+    2 heads of D = 64 (training grid 4), one-block ResNet / ResNeXt stages,
+    EfficientNet-Lite3 with at most two blocks a stage."""
+    import dataclasses
+    from depthmap_tpu_torch.models import efficientnet, midas_net, vit
+    from depthmap_tpu_torch.models.dpt import DPTDepthModel
+    if kind == "vit":
+        return DPTDepthModel(vit.VitBackbone(embed_dim=128, depth=4,
+                                             num_heads=2, hooks=(0, 1, 2, 3),
+                                             train_grid=4),
+                             (16, 32, 64, 64), 32)
+    if kind == "hybrid":
+        return DPTDepthModel(vit.HybridVitBackbone(embed_dim=128, depth=4,
+                                                   num_heads=2, hooks=(1, 3),
+                                                   train_grid=4,
+                                                   layers=(1, 1, 1)),
+                             (256, 512, 64, 64), 32)
+    if kind == "v21":
+        return midas_net.build_midas_v21(layers=(1, 1, 1, 1), groups=8,
+                                         width_per_group=4)
+    return midas_net.build_midas_v21_small(cfgs=tuple(
+        dataclasses.replace(c, repeats=min(c.repeats, 2))
+        for c in efficientnet.LITE3))
+
+
+# kind -> (model type, K1 launches a forward on the card)
+ZOO = {"vit": (3, 4), "hybrid": (4, 4), "v21": (5, 0), "small": (6, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ZOO))
+def test_small_zoo_card_matches_cpu(kind):
+    """Types 3-6 at a small size through the predictor in f32 (net 100 on a
+    75 x 130 image: the ViTs' position embeddings are resized), card
+    against CPU; K1 runs every ViT block on the card, never on the CPU,
+    and never in a conv net."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    mt, launches = ZOO[kind]
+    sd = init_random_(_small_zoo_model(kind), seed=2).state_dict()
+    with torch.device("meta"):
+        bundle = build_model(mt)
+    img = np.random.default_rng(3).random((2, 75, 130, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pred = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
+                              device=dev, bundle=dataclasses.replace(
+                                  bundle, module=_small_zoo_model(kind)))
+        before = fa.flash_attention_cuda.launches
+        out[dev] = pred.predict_batch(img, 100, 100)
+        out[dev + "_launches"] = fa.flash_attention_cuda.launches - before
+    assert (out["cuda_launches"], out["cpu_launches"]) == (launches, 0)
+    rng_ = float(np.ptp(out["cpu"]))
+    assert rng_ > 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-3 * rng_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_blur", [None, 3, 5])
+@pytest.mark.parametrize("sobel_k", [None, 1, 3, 5])
+def test_normalmap_card_matches_cpu(pre_blur, sobel_k):
+    """The normal map on the card against the CPU's, on a random and a
+    smooth 16-bit map, with and without post-blur and invert: |d| <= 1 on
+    <= 0.1% of the bytes (the CPU's is held to the JAX package's in
+    tests/test_torch_port_outputs.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from depthmap_tpu_torch.ops.normalmap import create_normalmap
+    rows, w = 120, 200
+    maps = {kind: (_depth(kind, rows, w, 10) * 65535).astype(np.uint16)
+            for kind in ("random", "structured")}
+    for kind, d in maps.items():
+        for post_blur in (None, 3):
+            for invert in (False, True):
+                args = (pre_blur, sobel_k, post_blur, invert)
+                got = create_normalmap(
+                    torch.from_numpy(d.astype(np.float32)).cuda(), *args)
+                assert got.is_cuda and got.dtype == torch.uint8
+                want = create_normalmap(d, *args)
+                diff = (got.cpu().int() - want.int()).abs()
+                assert int(diff.max()) <= 1, (kind, args)
+                assert float((diff > 0).float().mean()) <= 1e-3, (kind, args)

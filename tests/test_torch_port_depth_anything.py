@@ -283,21 +283,24 @@ def test_default_options_funnel_matches_jax(rng):
 
 
 def test_pos_embed_computed_once_per_grid(rng):
-    """The predictor resizes the position embeddings once per grid and
-    reuses them; the forward with them equals the forward without."""
+    """The predictor resizes the position embeddings once per net input
+    size (70 x 126, a 5 x 9 grid) and reuses them; the forward with them
+    equals the forward without."""
     _, tp = _predictors(13, "t_v2", seed=9)
     x = np.stack(_images(rng, [(45, 77)])).astype(np.float32) / 255.0
     first = tp.predict_batch(x, 70, 70)
     cached = dict(tp._grid_inputs)
-    assert list(cached) == [(5, 9)] and list(cached[(5, 9)]) == ["pos_embed"]
+    hw = (70, 126)
+    assert list(cached) == [hw] and list(cached[hw]) == ["pos_embed"]
+    assert cached[hw]["pos_embed"].shape[1] == 5 * 9 + 1
     again = tp.predict_batch(x, 70, 70)
-    assert tp.grid_inputs((5, 9))["pos_embed"] is cached[(5, 9)]["pos_embed"]
+    assert tp.grid_inputs(hw)["pos_embed"] is cached[hw]["pos_embed"]
     np.testing.assert_array_equal(first, again)
     from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
     xin = preprocess_images(torch.from_numpy(x), 70, 70, tp.bundle.preprocess)
     with torch.no_grad():
         inline = tp.bundle.module(xin)
-        hoisted = tp.bundle.module(xin, **cached[(5, 9)])
+        hoisted = tp.bundle.module(xin, **cached[hw])
     torch.testing.assert_close(hoisted, inline, rtol=0, atol=0)
 
 

@@ -180,8 +180,7 @@ def test_gpu_device_needs_cuda(rng):
 def test_unported_options_raise(rng):
     imgs = _images(rng, [(16, 16)])
     dm = [rng.random((16, 16))]
-    for opt in ("gen_normalmap", "gen_heatmap", "boost", "gen_simple_mesh",
-                "gen_rembg", "gen_inpainted_mesh"):
+    for opt in ("boost", "gen_rembg", "gen_inpainted_mesh"):
         inp = TOptions(compute_device="CPU", **{opt: True})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
@@ -213,15 +212,20 @@ def test_cli_depthmap_stereo(rng, tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every module of the package (walked, so the model modules that
+    build_model loads lazily count too) imports no JAX and nothing of the
+    JAX package."""
     code = (
-        "import sys\n"
-        "import depthmap_tpu_torch, depthmap_tpu_torch.cli\n"
-        "import depthmap_tpu_torch.pipeline.core\n"
-        "import depthmap_tpu_torch.models.weights\n"
-        "import depthmap_tpu_torch.ops.stereo\n"
+        "import importlib, pkgutil, sys\n"
+        "import depthmap_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'depthmap_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'depthmap_tpu_torch.models.efficientnet' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'depthmap_tpu')]\n"
-        "print(bad)\n"
+        "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
