@@ -15,7 +15,10 @@ and prints no result):
      shapes, bf16 (tensor-core body) and f32 (CUDA-core body), with a
      padded-row bias (BEiT) and without (Depth Anything: 12 and 16 heads,
      N up to 10765; the MiDaS 3.0 ViTs at N = 577, where the last kv tile
-     holds one key, and 1009), on inputs that peak the softmax
+     holds one key, and 1009; ZoeDepth's BEiT-L 384 core under flip TTA,
+     its bias shared across the doubled batch: N = 1025 and 2305 at
+     batch 8, 1009 and 1345 at batch 2, and 769 in f32), on inputs that
+     peak the softmax
      (K1_Q_SCALE); per case the kernel's time (CUDA events over 20 calls;
      and its device time from torch.profiler, which leaves out the host's
      launch gaps that the events hold at the short shapes), the plain
@@ -41,8 +44,12 @@ and prints no result):
   5. whole-path numerics: one image through the predictor in f32 on the
      card (kernels, TF32 off) and on the CPU (plain versions):
      dpt_beit_large_512 at 512x512, Depth Anything v2 Base at 518x518,
-     dpt_large_384 and dpt_hybrid_384 at 384x384, midas_v21 at 384x384 and
-     midas_v21_small at 256x256;
+     dpt_large_384 and dpt_hybrid_384 at 384x384, midas_v21 at 384x384,
+     midas_v21_small at 256x256, zoedepth_k and zoedepth_nk on a 384x512
+     image (N = 769, 24 K1 launches) and res101 at 448x448 (none); then
+     zoedepth_k at its default precision (bf16 core, f32 metric head) on
+     the same image, on the card and on the CPU, each held to the card's
+     f32 map: the card's drift within SELECTIVE_DRIFT_RATIO x the CPU's;
   6. the default options' path, MAIN_RUNS timed runs: GenerationOptions()
      (Depth Anything v2 Base, net 448, 12 blocks, 768 wide, 12 heads,
      bf16) with naive-fill stereo, on the images of phase 4: K1 bias-free
@@ -65,13 +72,20 @@ and prints no result):
  11. the normal map at 1080x1920 on the maps of phase 8, every option
      (pre-blur, Sobel kernel or np.gradient, post-blur, invert), card
      against CPU within |d| <= 1 on <= 0.1% of the bytes, ms per map;
-     the heatmap's host time on the same maps.
-Each model path (4, 6, 7, 9, 10) sets every kernel count to 0 just before
-each timed run and reads it just after.  With --profile, torch.profiler
+     the heatmap's host time on the same maps;
+ 12. this slice's paths, depth only, on the images of phase 4 at each
+     model's default net size: zoedepth_n (MAIN_RUNS timed runs),
+     zoedepth_k, zoedepth_nk and res101 (LeReS; 2 each): K1 24 times a
+     forward for each ZoeDepth model (N = 1025 / 1009 for n and nk, 2305
+     with the inline per-block bias / 1345 for k), never for LeReS; each
+     at its default precision, checked: ZoeDepth's core in bf16 beside its
+     f32 metric head, LeReS in f32.
+Each model path (4, 6, 7, 9, 10, 12) sets every kernel count to 0 just
+before each timed run and reads it just after.  With --profile, torch.profiler
 over one warm funnel run per path gives each path's device time and K1's
 / K2's share of it (K2: both stages).  The last lines: the card's name and power
 limit, a JSON line with each kernel's numbers (K1's launches: the sum over
-phases 4, 6, 7, 9 and 10, each path's count beside it; K2's: phase 4's
+phases 4, 6, 7, 9, 10 and 12, each path's count beside it; K2's: phase 4's
 sweeps),
 and {"ok": true, "device": {...}}.
 """
@@ -104,6 +118,15 @@ K2_REPLACES = "depthmap_tpu/ops/polylines_pallas.py:389"
 # whole-path f32 agreement, card (kernels) vs CPU (plain versions), as a
 # fraction of the CPU map's range
 PATH_RTOL = 1e-3
+# zoedepth_k at its default precision (bf16 core, f32 metric head): the
+# card's drift from the f32 map (mean relative difference) against the
+# CPU's, whose bf16 plain attention rounds p before p.v as K1 does.  Two
+# bf16 paths that round in different places should drift about equally;
+# with random weights the two selective maps differ by ~2% on average
+# (24 blocks, then the log-binomial softmax at t down to 0.0212), too
+# close to a fixed bound to hold them to each other.  A kernel fault (an
+# output off by >= 0.2, phase 2) would multiply the card's drift.
+SELECTIVE_DRIFT_RATIO = 2.0
 # timed runs of the main path (each resets and checks the launch counts),
 # for the spread of its host-clock times
 MAIN_RUNS = 3
@@ -285,6 +308,16 @@ def phase_k1():
         ("bf16_b4_h12_n577_none", bf16, 4, 12, 577, None),
         ("bf16_b1_h12_n1009_none", bf16, 1, 12, 1009, None),
         ("bf16_b1_h16_n577_shared", bf16, 1, 16, 577, 1),
+        # ZoeDepth's BEiT-L 384 under flip TTA (batch = 2 x images, one
+        # bias for all): n / nk at 4 x 512^2 (net 512^2, N = 1025) and
+        # 1080p (384 x 672, N = 1009); k at 4 x 512^2 (768^2, N = 2305,
+        # the inline per-block bias) and 1080p (448 x 768, N = 1345); the
+        # f32 call of phase 5 at 384 x 512 (N = 769)
+        ("bf16_b8_h16_n1025_shared", bf16, 8, 16, 1025, 1),
+        ("bf16_b2_h16_n1009_shared", bf16, 2, 16, 1009, 1),
+        ("bf16_b8_h16_n2305_shared", bf16, 8, 16, 2305, 1),
+        ("bf16_b2_h16_n1345_shared", bf16, 2, 16, 1345, 1),
+        ("f32_b2_h16_n769_shared", f32, 2, 16, 769, 1),
     ]
     worst = 0.0
     main = None
@@ -495,12 +528,19 @@ def profile_paths(cache, inp, paths):
             top=repr([(k[:48], round(t, 3)) for k, t in top]))
 
 
+def dpt_of(module):
+    """The DPT inside a model (ZoeDepth's relative-depth core), or the
+    model itself."""
+    zoe = getattr(module, "model", None)
+    return zoe.core.core if zoe is not None else module
+
+
 def backbone_shape(module):
     """(blocks, width, heads) of a transformer backbone (BEiT, ViT, the
     hybrid, DINOv2); (0, None, None) for a conv encoder."""
-    bb = module.pretrained
-    blocks = bb.model.blocks if hasattr(bb, "model") else \
-        getattr(bb, "blocks", ())
+    bb = getattr(dpt_of(module), "pretrained", None)
+    blocks = () if bb is None else bb.model.blocks if hasattr(bb, "model") \
+        else getattr(bb, "blocks", ())
     if len(blocks) == 0:
         return 0, None, None
     return (len(blocks), blocks[0].norm1.normalized_shape[0],
@@ -510,13 +550,18 @@ def backbone_shape(module):
 def attention_tokens(pred, inp, img):
     """N of the backbone's attention for one funnel image: the token grid
     of the net input that the funnel's net size and the model's resize
-    rule give, plus the cls token; None for a conv model."""
+    rule give (ZoeDepth's own, inside the model), plus the cls token; None
+    for a conv model."""
     from depthmap_tpu_torch.pipeline.core import _funnel_net_size
     from depthmap_tpu_torch.pipeline.preprocess import net_input_size
     h, w = img.shape[:2]
     nw, nh = _funnel_net_size(inp, w, h)
-    iw, ih = net_input_size(w, h, nw, nh, pred.bundle.preprocess)
-    bb = pred.bundle.module.pretrained
+    module = pred.bundle.module
+    if pred.bundle.prep_in_model:
+        ih, iw = module.net_input_size(h, w, (nh, nw), module.img_size)
+    else:
+        iw, ih = net_input_size(w, h, nw, nh, pred.bundle.preprocess)
+    bb = getattr(dpt_of(module), "pretrained", None)
     if hasattr(bb, "grid_for"):
         gh, gw = bb.grid_for((ih, iw))
     elif hasattr(bb, "patch_size"):
@@ -527,7 +572,7 @@ def attention_tokens(pred, inp, img):
 
 
 def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
-                 profile=False, runs=MAIN_RUNS, mesh_image=None):
+                 profile=False, runs=MAIN_RUNS, mesh_image=None, dtypes=None):
     """One path through PredictorCache and core_generation_funnel at full
     width (random weights, seed 0): a warm-up run, then ``runs`` timed
     runs, each with every kernel count set to 0 just before it and read
@@ -537,7 +582,9 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
     sweep ``k2_eyes`` times each; every output's dtype and shape is
     checked.  With ``mesh_image``, one more run on it with the simple mesh
     only, into a temporary directory: its OBJ must hold a vertex a pixel.
-    Returns the last timed run's (K1, K2 sweep) launches."""
+    With ``dtypes`` (compute, core), the predictor must run in them and the
+    core's weights must be in the core dtype.  Returns the last timed
+    run's (K1, K2 sweep) launches."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -550,6 +597,12 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     blocks, width, heads = backbone_shape(pred.bundle.module)
+    core_weights = next(dpt_of(pred.bundle.module).parameters()).dtype
+    if dtypes is not None and (pred.compute_dtype, pred.core_dtype,
+                               core_weights) != (*dtypes, dtypes[1]):
+        raise AssertionError(
+            f"{phase}: compute {pred.compute_dtype}, core {pred.core_dtype}"
+            f" (weights {core_weights}), expected {dtypes}")
     # warm-up run: cuDNN algorithm choice and the per-grid hoists
     for _ in core_generation_funnel(None, images, None, None, inp,
                                     predictor_cache=cache):
@@ -606,7 +659,8 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         log(phase, run=run, model=pred.spec.name, blocks=blocks,
             width=width, heads=heads, tokens=tokens,
-            dtype=str(pred.compute_dtype), build_s=f"{build_s:.2f}",
+            dtype=str(pred.compute_dtype), core_dtype=str(pred.core_dtype),
+            core_weights=str(core_weights), build_s=f"{build_s:.2f}",
             fill=inp.stereo_fill_algo if inp.gen_stereo else None, **times,
             s_total=f"{t_end - t_start:.4f}", k1_launches=k1,
             k2_launches=k2, k2_sort_launches=k2_sort,
@@ -740,6 +794,32 @@ def phase_zoo(profile: bool = False):
     return launches
 
 
+def phase_metric_zoo(profile: bool = False):
+    """This slice's paths on the images of phase 4 at each model's default
+    net size, depth only: zoedepth_n (MAIN_RUNS timed runs), zoedepth_k,
+    zoedepth_nk and res101 (2 each).  ZoeDepth runs K1 24 times a forward
+    (flip TTA: batch 8 for the 4 batched images, 2 for the 1080p one);
+    LeReS never.  Each runs at its default precision: ZoeDepth's core in
+    bf16 beside its f32 metric head, LeReS in f32."""
+    import torch
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.registry import get_default_net_size
+    images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
+    launches = {}
+    for name, runs in (("zoedepth_n", MAIN_RUNS), ("zoedepth_k", 2),
+                       ("zoedepth_nk", 2), ("res101", 2)):
+        nw, nh = get_default_net_size(name)
+        inp = GenerationOptions(compute_device="GPU", model_type=name,
+                                net_width=nw, net_height=nh)
+        core = torch.float32 if name == "res101" else torch.bfloat16
+        launches[name], _ = drive_funnel(
+            f"12-{name}", inp, images,
+            [("512_batched", 4), ("1080p_serial", 1)], forwards=2,
+            k2_eyes=0, profile=profile, runs=runs,
+            dtypes=(torch.float32, core))
+    return launches
+
+
 def phase_normalmap():
     """The normal map at 1080 x 1920 on the random and the smooth map of
     phase 8, every option, card against the port's CPU: |d| <= 1 on <=
@@ -844,34 +924,43 @@ def phase_numerics():
     versions): dpt_beit_large_512 at 512^2 (K1 with bias, 24 launches),
     Depth Anything v2 Base at 518^2 (K1 bias-free at N = 1370, 12),
     dpt_large_384 and dpt_hybrid_384 at 384^2 (N = 577: 24 and 12),
-    midas_v21 at 384^2 and midas_v21_small at 256^2 (no attention: 0)."""
+    midas_v21 at 384^2 and midas_v21_small at 256^2 (no attention: 0),
+    zoedepth_k and zoedepth_nk on a 384 x 512 image at their default net
+    sizes (net input 384 x 512 under flip TTA: K1 with the bias at N =
+    769, batch 2, 24 launches) and res101 at 448^2 (0)."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.models.build import build_model
     from depthmap_tpu_torch.models.weights import init_random_
     from depthmap_tpu_torch.ops import flash_attention as fa
     from depthmap_tpu_torch.pipeline.depth import DepthPredictor
-    for mt, size, launches in ((1, 512, 24), (13, 518, 12), (3, 384, 24),
-                               (4, 384, 12), (5, 384, 0), (6, 256, 0)):
+    from depthmap_tpu_torch.registry import get_default_net_size
+    for mt, (h, w), launches in ((1, (512, 512), 24), (13, (518, 518), 12),
+                                 (3, (384, 384), 24), (4, (384, 384), 12),
+                                 (5, (384, 384), 0), (6, (256, 256), 0),
+                                 (8, (384, 512), 24), (9, (384, 512), 24),
+                                 (0, (448, 448), 0)):
+        net_w, net_h = (w, h) if mt not in (8, 9) else \
+            get_default_net_size(mt)
         sd = init_random_(build_model(mt).module, seed=4).state_dict()
-        img = _test_images(5, [(size, size)])[0].astype(np.float32) / 255.0
+        img = _test_images(5, [(h, w)])[0].astype(np.float32) / 255.0
         gpu = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
                              device="cuda")
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
         before = fa.flash_attention_cuda.launches
-        on_card = gpu.predict(img, size, size)
+        on_card = gpu.predict(img, net_w, net_h)
         launched = fa.flash_attention_cuda.launches - before
         del gpu
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cpu = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
                              device="cpu")
-        on_cpu = cpu.predict(img, size, size)
+        on_cpu = cpu.predict(img, net_w, net_h)
         cpu_s = time.perf_counter() - t0
         rng_ = float(on_cpu.max() - on_cpu.min())
         err = float(np.abs(on_card - on_cpu).max())
-        log("5-numerics", model=cpu.spec.name, size=size,
+        log("5-numerics", model=cpu.spec.name, size=f"{h}x{w}",
             k1_launches=launched, cpu_range=f"{rng_:.4e}",
             max_abs_diff=f"{err:.4e}", rel_to_range=f"{err / rng_:.3e}",
             bound=PATH_RTOL, cpu_seconds=f"{cpu_s:.1f}")
@@ -882,6 +971,66 @@ def phase_numerics():
         if not (rng_ > 0 and err <= PATH_RTOL * rng_):
             raise AssertionError(f"{cpu.spec.name} card vs CPU: {err} > "
                                  f"{PATH_RTOL} x {rng_}")
+    phase_numerics_selective()
+
+
+def phase_numerics_selective():
+    """zoedepth_k at its default precision (the core in bf16, K1 with the
+    bias at N = 769 on the card; the metric head in f32) on the 384 x 512
+    image of phase 5, on the card and on the CPU, each held to the card's
+    f32 map: the card's drift from it (mean relative difference) within
+    SELECTIVE_DRIFT_RATIO times the CPU's."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    from depthmap_tpu_torch.registry import get_default_net_size
+    sd = init_random_(build_model(8).module, seed=4).state_dict()
+    img = _test_images(5, [(384, 512)])[0].astype(np.float32) / 255.0
+    net_w, net_h = get_default_net_size(8)
+    maps, launched = {}, {}
+    for run, dev, dtype in (("f32", "cuda", torch.float32),
+                            ("card", "cuda", None), ("cpu", "cpu", None)):
+        pred = DepthPredictor(8, state_dict=sd, device=dev,
+                              compute_dtype=dtype)
+        want = (torch.float32, torch.float32 if dtype else torch.bfloat16)
+        if (pred.compute_dtype, pred.core_dtype) != want:
+            raise AssertionError(
+                f"zoedepth_k {run}: ({pred.compute_dtype}, "
+                f"{pred.core_dtype}), expected {want}")
+        before = fa.flash_attention_cuda.launches
+        t0 = time.perf_counter()
+        maps[run] = pred.predict(img, net_w, net_h)
+        seconds = time.perf_counter() - t0
+        launched[run] = fa.flash_attention_cuda.launches - before
+        del pred
+        torch.cuda.empty_cache()
+    ref = np.abs(maps["f32"])
+    drift = {run: float((np.abs(maps[run] - maps["f32"]) / ref).mean())
+             for run in ("card", "cpu")}
+    apart = np.abs(maps["card"] - maps["cpu"]) / np.abs(maps["cpu"])
+    log("5-numerics", model="zoedepth_k", precision="selective",
+        compute_dtype="torch.float32", core_dtype="torch.bfloat16",
+        size="384x512", k1_launches=launched["card"],
+        card_drift=f"{drift['card']:.3e}", cpu_drift=f"{drift['cpu']:.3e}",
+        ratio=f"{drift['card'] / drift['cpu']:.3f}",
+        bound=SELECTIVE_DRIFT_RATIO,
+        card_vs_cpu_mean_rel=f"{apart.mean():.3e}",
+        card_vs_cpu_max_rel=f"{apart.max():.3e}",
+        cpu_seconds=f"{seconds:.1f}")
+    if (launched["card"], launched["cpu"]) != (24, 0):
+        raise AssertionError(f"zoedepth_k selective: K1 launched "
+                             f"{launched}, expected 24 on the card, 0 on "
+                             "the CPU")
+    if not (all(np.isfinite(m).all() for m in maps.values())
+            and drift["cpu"] > 0
+            and drift["card"] <= SELECTIVE_DRIFT_RATIO * drift["cpu"]):
+        raise AssertionError(f"zoedepth_k selective: the card's drift from "
+                             f"the f32 map {drift['card']} > "
+                             f"{SELECTIVE_DRIFT_RATIO} x the CPU's "
+                             f"{drift['cpu']}")
 
 
 def main() -> int:
@@ -899,6 +1048,7 @@ def main() -> int:
     phase_warp_fills(k2["ms"])
     k1_by_path["dpt_large_384"] = phase_dpt_large(profile)
     k1_by_path.update(phase_zoo(profile))
+    k1_by_path.update(phase_metric_zoo(profile))
     phase_normalmap()
     import torch
 

@@ -1,33 +1,34 @@
 """Model construction: id/name -> (torch module, preprocess cfg, output
 semantics).  Port of ``depthmap_tpu/models/build.py`` for the model types
-this port has: 1-4 (the DPT models: BEiT-L 512 / 384, ViT-L 384, the
-ViT-B + ResNet-50 hybrid), 5-6 (midas_v21, midas_v21_small), 11 (Depth
-Anything v1) and 12-14 (Depth Anything v2 small / base / large).
+this port has: 0 (LeReS res101), 1-4 (the DPT models: BEiT-L 512 / 384,
+ViT-L 384, the ViT-B + ResNet-50 hybrid), 5-6 (midas_v21,
+midas_v21_small), 7-9 (ZoeDepth n / k / nk), 11 (Depth Anything v1) and
+12-14 (Depth Anything v2 small / base / large).  Type 10 (Marigold) raises.
 
 Every module takes NCHW input and offers ``grid_inputs(input_hw, dtype)``
 (what it computes from its parameters for an input size, passed to its
-forward as keywords) and ``head_to_f32()``."""
+forward as keywords) and ``head_to_f32()``.  A ``prep_in_model`` module
+(ZoeDepth) takes the image in [0, 1] with ``net_size``, resizes and
+normalizes it itself, returns the map at the input size, and offers
+``net_input_size`` and ``core_to(dtype)``.  ``selective_core`` names the
+JAX package's policy for running such a model's core in another dtype
+than its head (``pipeline.depth.precision`` reads it)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch.nn as nn
 
 from depthmap_tpu_torch.pipeline.preprocess import (HALF_MEAN, HALF_STD,
                                                     IMAGENET_MEAN,
                                                     IMAGENET_STD,
+                                                    INTER_LINEAR,
                                                     PreprocessCfg)
 from depthmap_tpu_torch.registry import MODELS, resolve_model_type
 
 # where each model type not ported yet stands in ROADMAP.md
-_ROADMAP = {
-    0: "Queue 1 item 10 (LeReS + Boost)",
-    7: "Queue 1 item 9 (ZoeDepth)",
-    8: "Queue 1 item 9 (ZoeDepth)",
-    9: "Queue 1 item 9 (ZoeDepth)",
-    10: "Queue 1 item 12 (Marigold)",
-}
+_ROADMAP = {10: "Queue 1 item 12 (Marigold)"}
 
 
 @dataclass
@@ -39,6 +40,11 @@ class ModelBundle:
     upsample_mode: str = "bicubic"
     upsample_align_corners: bool = False
     predicts_depth: bool = False     # True => funnel negates before normalize
+    prep_in_model: bool = False      # resize/normalize happen inside the net
+    # ZoeDepth's selective precision: "zoe_core_env" (the core in
+    # DEPTHMAP_ZOE_CORE_DTYPE, bf16 by default) or "knk_head_f32" (bf16
+    # core, f32 head unless DEPTHMAP_ZOE_KNK_HEAD_F32=0); None: one dtype
+    selective_core: Optional[str] = None
 
 
 def build_model(model_type) -> ModelBundle:
@@ -76,6 +82,23 @@ def build_model(model_type) -> ModelBundle:
                                      mean=IMAGENET_MEAN, std=IMAGENET_STD,
                                      multiple_of=14, swap_channels=True),
             upsample_mode="bilinear", upsample_align_corners=mt != 11)
+    if mt in (7, 8, 9):  # ZoeDepth: preprocessing inside the model
+        from depthmap_tpu_torch.models.zoedepth import build_zoedepth
+        return ModelBundle(
+            spec=spec, module=build_zoedepth(spec.variant),
+            preprocess=PreprocessCfg(resize_mode="none", swap_channels=True),
+            upsample_mode="bilinear", upsample_align_corners=True,
+            predicts_depth=True, prep_in_model=True,
+            selective_core="zoe_core_env" if mt == 7 else "knk_head_f32")
+    if mt == 0:  # LeReS res101: RGB, squashed, bilinear
+        from depthmap_tpu_torch.models.leres import build_leres
+        return ModelBundle(
+            spec=spec, module=build_leres(),
+            preprocess=PreprocessCfg(resize_mode="squash",
+                                     mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                                     interpolation=INTER_LINEAR),
+            upsample_mode="bicubic", upsample_align_corners=False,
+            predicts_depth=True)
     raise NotImplementedError(
         f"model {spec.name} (type {mt}) is not ported yet: ROADMAP.md "
         f"{_ROADMAP[mt]}")

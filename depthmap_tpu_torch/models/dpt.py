@@ -4,7 +4,8 @@ Port of ``depthmap_tpu/models/dpt.py`` (ProjectReadout, Reassemble,
 DPTDepthModel, build_dpt) in the reference checkpoint layout: the
 backbone under ``pretrained.model``, the reassemble stages under
 ``pretrained.act_postprocess{1..4}`` (indices 0 readout, 3 1x1 proj,
-4 resize), the decoder under ``scratch``.  The hybrid's first two
+4 resize), the decoder under ``scratch``.  ``with_zoe_taps`` also
+returns the taps ZoeDepth's metric head reads.  The hybrid's first two
 features are ResNet maps that pass through without a reassemble (its
 ``act_postprocess1/2`` hold no parameters, so the module has none).
 """
@@ -53,8 +54,9 @@ class DPTDepthModel(nn.Module):
 
     def __init__(self, backbone: nn.Module,
                  reassemble_channels: Sequence[int] = (256, 512, 1024, 1024),
-                 features: int = 256):
+                 features: int = 256, with_zoe_taps: bool = False):
         super().__init__()
+        self.with_zoe_taps = with_zoe_taps
         self.pretrained = backbone
         dim = backbone.model.cls_token.shape[-1]
         for i, ch in enumerate(reassemble_channels):
@@ -77,7 +79,8 @@ class DPTDepthModel(nn.Module):
 
     def forward(self, x, **grid_inputs):
         """``grid_inputs``: the backbone's (``rel_bias`` for BEiT,
-        ``pos_embed`` for ViT), made by the backbone when not given."""
+        ``pos_embed`` for ViT), made by the backbone when not given.  With
+        ``with_zoe_taps``: (depth, (out_conv_act, r4, p4, p3, p2, p1))."""
         feats, (gh, gw) = self.pretrained(x, **grid_inputs)
         layers = []
         for i, tokens in enumerate(feats):
@@ -88,7 +91,7 @@ class DPTDepthModel(nn.Module):
             h = post[0](tokens)
             h = h.transpose(1, 2).reshape(h.shape[0], h.shape[2], gh, gw)
             layers.append(post[3:](h))
-        return self.scratch(layers)
+        return self.scratch(layers, with_taps=self.with_zoe_taps)
 
 
 def build_dpt(variant: str) -> DPTDepthModel:

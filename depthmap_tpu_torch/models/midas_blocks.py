@@ -114,24 +114,29 @@ class Scratch(nn.Module):
         self.output_conv[4].float()
 
     def forward(self, layers, fuse_to_size: bool = True,
-                head_align_corners: bool = True):
+                head_align_corners: bool = True, with_taps: bool = False):
         """Four level maps -> (B, H, W) non-negative raw map.  DPT fuses
         each level to the next one's size and upsamples the head with
         align_corners=True; the MiDaS v2.1 nets fuse by 2x and upsample the
         head with align_corners=False.  The last conv runs in f32 whatever
         the compute dtype: a bf16 output would quantize the 16-bit depth
-        map to ~256 levels."""
+        map to ~256 levels.  ``with_taps`` also returns ZoeDepth's taps:
+        (the head's post-ReLU 32-channel map, layer4_rn's output, the four
+        fusion outputs p4..p1), in the compute dtype."""
         r = [getattr(self, f"layer{i + 1}_rn")(h)
              for i, h in enumerate(layers)]
 
         def size(j):
             return r[j].shape[2:] if fuse_to_size else None
-        p = self.refinenet4(r[3], size=size(2))
-        p = self.refinenet3(p, r[2], size=size(1))
-        p = self.refinenet2(p, r[1], size=size(0))
-        p = self.refinenet1(p, r[0])
-        out = self.output_conv[0](p)
+        p4 = self.refinenet4(r[3], size=size(2))
+        p3 = self.refinenet3(p4, r[2], size=size(1))
+        p2 = self.refinenet2(p3, r[1], size=size(0))
+        p1 = self.refinenet1(p2, r[0])
+        out = self.output_conv[0](p1)
         out = scale2x(out, "bilinear", align_corners=head_align_corners)
         out = F.relu(self.output_conv[2](out))
         head = self.output_conv[4]
-        return F.relu(head(out.to(head.weight.dtype)))[:, 0]
+        depth = F.relu(head(out.to(head.weight.dtype)))[:, 0]
+        if with_taps:
+            return depth, (out, r[3], p4, p3, p2, p1)
+        return depth

@@ -1,9 +1,10 @@
-"""ResNeXt101-32x8d encoder of midas_v21 (NCHW), with MiDaS's 4-layer taps.
+"""ResNeXt101-32x8d encoder of midas_v21 and LeReS (NCHW), with 4 taps.
 
 Port of ``depthmap_tpu/models/resnet.py`` in the reference checkpoint
-layout: torchvision's resnext101_32x8d split as MiDaS splits it
+layouts: torchvision's resnext101_32x8d split as MiDaS splits it
 (``pretrained.layer1`` = conv1, bn1, relu, maxpool, resnet.layer1 at
-indices 0, 1, 2, 3, 4; ``pretrained.layer{2,3,4}``), each bottleneck with
+indices 0, 1, 2, 3, 4; ``pretrained.layer{2,3,4}``), or torchvision's own
+(``conv1``, ``bn1``, ``layer{1..4}``: LeReS), each bottleneck with
 ``conv{1,2,3}`` / ``bn{1,2,3}`` / ``downsample.{0,1}``.  BatchNorm eps
 1e-5, in eval mode.  The stem max-pool pads with -inf explicitly, so
 tiling mode (which reaches the padded convs) leaves it as the JAX package
@@ -58,21 +59,31 @@ def _layer(in_ch: int, planes: int, n: int, stride: int, groups: int,
 
 
 class ResNeXtBackbone(nn.Module):
-    """4 feature taps at strides 4/8/16/32, channels 256/512/1024/2048."""
+    """4 feature taps at strides 4/8/16/32, channels 256/512/1024/2048;
+    the stem inside ``layer1`` (MiDaS's split) or beside it
+    (``midas_layout=False``: torchvision's)."""
 
     def __init__(self, layers: Tuple[int, ...] = (3, 4, 23, 3),
-                 groups: int = 32, width_per_group: int = 8):
+                 groups: int = 32, width_per_group: int = 8,
+                 midas_layout: bool = True):
         super().__init__()
         gw = (groups, width_per_group)
-        self.layer1 = nn.Sequential(
-            nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
-            nn.ReLU(),
-            MaxPoolPadded(3, 2, pad=1), _layer(64, 64, layers[0], 1, *gw))
+        stem = [nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+                nn.ReLU(), MaxPoolPadded(3, 2, pad=1)]
+        layer1 = _layer(64, 64, layers[0], 1, *gw)
+        self.midas_layout = midas_layout
+        if midas_layout:
+            self.layer1 = nn.Sequential(*stem, layer1)
+        else:
+            self.conv1, self.bn1, self.relu, self.maxpool = stem
+            self.layer1 = layer1
         self.layer2 = _layer(256, 128, layers[1], 2, *gw)
         self.layer3 = _layer(512, 256, layers[2], 2, *gw)
         self.layer4 = _layer(1024, 512, layers[3], 2, *gw)
 
     def forward(self, x):
+        if not self.midas_layout:
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         l1 = self.layer1(x)
         l2 = self.layer2(l1)
         l3 = self.layer3(l2)

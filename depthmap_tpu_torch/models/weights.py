@@ -8,11 +8,16 @@ layouts that ``depthmap_tpu.models.convert`` reads: ``convert_dpt_beit``
 ``scratch.refinenet{i}...``), ``convert_dpt_vit``, ``convert_dpt_hybrid``
 (``pretrained.model.patch_embed.backbone.stages.{s}.blocks.{b}...``),
 ``convert_midas_v21`` (``pretrained.layer1.{0,1,4}``...),
-``convert_midas_small`` (``pretrained.layer1.3.0.conv_dw``...) and
+``convert_midas_small`` (``pretrained.layer1.3.0.conv_dw``...),
 ``convert_depth_anything`` (``pretrained.blocks.{i}.ls1.gamma``,
 ``depth_head.projects.{i}``, ``depth_head.scratch.output_conv2.{0,2}``...),
-so a reference checkpoint loads with ``load_state_dict(strict=True)`` and
-needs no converter.  ``state_dict_from_jax`` is the inverse of each
+``convert_zoedepth`` (``core.core.*`` the BEiT DPT, ``seed_projector._net.0``,
+``attractors.{nyu,kitti}.{i}._net.2``, ``patch_transformer...``) and
+``convert_leres`` (``depth_model.encoder_modules.encoder.layer1.0.conv1``,
+``depth_model.decoder_modules.ffm2.ftb1.conv_branch.2``...), so a
+reference checkpoint loads with ``load_state_dict(strict=True)`` and
+needs no converter (ZoeDepth's keys under the ``model.`` of the
+checkpoint's own wrapping, as ``load_checkpoint`` adds it).  ``state_dict_from_jax`` is the inverse of each
 converter, told apart by the JAX tree's own keys.
 """
 from __future__ import annotations
@@ -27,19 +32,31 @@ import torch.nn as nn
 
 from depthmap_tpu_torch.models.beit import gen_relative_position_index
 
-CHECKPOINT_FILES = {1: "dpt_beit_large_512.pt", 2: "dpt_beit_large_384.pt",
+CHECKPOINT_FILES = {0: "res101.pth",
+                    1: "dpt_beit_large_512.pt", 2: "dpt_beit_large_384.pt",
                     3: "dpt_large-midas-2f21e586.pt",
                     4: "dpt_hybrid-midas-501f0c75.pt",
                     5: "midas_v21-f6b98070.pt",
                     6: "midas_v21_small-70d6b9c8.pt",
+                    7: "ZoeD_M12_N.pt", 8: "ZoeD_M12_K.pt",
+                    9: "ZoeD_M12_NK.pt",
                     11: "depth_anything_vitl14.pth",
                     12: "depth_anything_v2_vits.pth",
                     13: "depth_anything_v2_vitb.pth",
                     14: "depth_anything_v2_vitl.pth"}
 
-# keys of the timm classifier that the DPT hooks never reach
-_HOOK_DEAD = ("pretrained.model.head.", "pretrained.model.fc_norm.",
-              "pretrained.model.norm.")
+# key prefixes of a checkpoint that no forward reads: the timm classifier
+# that the DPT hooks never reach (also under ZoeDepth's ``core.core.``),
+# and ZoeDepth's LogBinomial constants (the port builds its table on the
+# host)
+_DEAD_KEYS = ("pretrained.model.head.", "pretrained.model.fc_norm.",
+              "pretrained.model.norm.",
+              "core.core.pretrained.model.head.",
+              "core.core.pretrained.model.fc_norm.",
+              "core.core.pretrained.model.norm.",
+              "conditional_log_binomial.log_binomial_transform.",
+              "conditional_log_binomial.nyu.log_binomial_transform.",
+              "conditional_log_binomial.kitti.log_binomial_transform.")
 
 
 def _t(a) -> torch.Tensor:
@@ -130,29 +147,41 @@ def _put_midas_decoder(sd, p, zero_rcu1: bool = False):
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables (numpy leaves) -> the port's state dict, through the
-    inverse of the converter that made that tree: Depth Anything (a
-    ``depth_head``), the DPT models (a ``backbone``: the hybrid's holds a
-    ResNet ``backbone``, ViT-L's a ``pos_embed``, BEiT's neither),
-    midas_v21_small (an encoder ``stem``) and midas_v21."""
+    inverse of the converter that made that tree: ZoeDepth (a ``model``,
+    held by the port's wrapper under ``model.``),
+    LeReS (an ``encoder``), Depth Anything (a ``depth_head``), the DPT
+    models (a ``backbone``: the hybrid's holds a ResNet ``backbone``,
+    ViT-L's a ``pos_embed``, BEiT's neither), midas_v21_small (an encoder
+    ``stem``) and midas_v21."""
     p = variables["params"]
+    if "model" in p:
+        return {f"model.{k}": v
+                for k, v in _state_dict_from_jax_zoe(p["model"]).items()}
+    if "encoder" in p:
+        return _state_dict_from_jax_leres(variables)
     if "depth_head" in p:
         return state_dict_from_jax_da(variables)
     if "backbone" in p:
-        bb = p["backbone"]
-        if "backbone" in bb:
-            sd = _state_dict_from_jax_hybrid(bb)
-        elif "pos_embed" in bb:
-            sd = _vit_body(bb, "pretrained.model")
-            _put_conv(sd, "pretrained.model.patch_embed.proj",
-                      bb["patch_embed"]["proj"])
-        else:
-            sd = _beit_body(bb)
-        _put_reassemble(sd, p)
-        _put_midas_decoder(sd, p)
-        return sd
+        return _dpt_state_dict(p)
     if "stem" in p["pretrained"]:
         return _state_dict_from_jax_small(variables)
     return _state_dict_from_jax_midas_v21(variables)
+
+
+def _dpt_state_dict(p) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_dpt_beit`` / ``_vit`` / ``_hybrid``."""
+    bb = p["backbone"]
+    if "backbone" in bb:
+        sd = _state_dict_from_jax_hybrid(bb)
+    elif "pos_embed" in bb:
+        sd = _vit_body(bb, "pretrained.model")
+        _put_conv(sd, "pretrained.model.patch_embed.proj",
+                  bb["patch_embed"]["proj"])
+    else:
+        sd = _beit_body(bb)
+    _put_reassemble(sd, p)
+    _put_midas_decoder(sd, p)
+    return sd
 
 
 def _put_reassemble(sd, p):
@@ -222,21 +251,17 @@ def _state_dict_from_jax_hybrid(bb) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _state_dict_from_jax_midas_v21(variables) -> Dict[str, torch.Tensor]:
-    """The inverse of ``convert_midas_v21``; refinenet4's unused
-    ``resConfUnit1`` (in the checkpoint, not in the JAX tree) is zeros."""
-    p = variables["params"]
-    enc, st = p["pretrained"], variables["batch_stats"]["pretrained"]
-    sd: Dict[str, torch.Tensor] = {}
-    _put_conv(sd, "pretrained.layer1.0", enc["conv1"]["conv"], bias=False)
-    _put_bn(sd, "pretrained.layer1.1", enc["bn1"]["bn"], st["bn1"]["bn"])
-    prefix = {1: "pretrained.layer1.4", 2: "pretrained.layer2",
-              3: "pretrained.layer3", 4: "pretrained.layer4"}
+def _put_resnext(sd, enc, st, stem: str, bn1: str, layers: Dict[int, str]):
+    """The ResNeXt of ``convert_midas_v21`` / ``convert_leres``: the stem
+    conv and BatchNorm at ``stem`` / ``bn1``, block ``layer{l}_{b}`` at
+    ``{layers[l]}.{b}``."""
+    _put_conv(sd, stem, enc["conv1"]["conv"], bias=False)
+    _put_bn(sd, bn1, enc["bn1"]["bn"], st["bn1"]["bn"])
     for key, blk in enc.items():
         if not key.startswith("layer"):
             continue
         li, bi = key[len("layer"):].split("_")
-        t = f"{prefix[int(li)]}.{bi}"
+        t = f"{layers[int(li)]}.{bi}"
         for i in (1, 2, 3):
             _put_conv(sd, f"{t}.conv{i}", blk[f"conv{i}"]["conv"],
                       bias=False)
@@ -247,7 +272,98 @@ def _state_dict_from_jax_midas_v21(variables) -> Dict[str, torch.Tensor]:
                       blk["downsample_conv"]["conv"], bias=False)
             _put_bn(sd, f"{t}.downsample.1", blk["downsample_bn"]["bn"],
                     st[key]["downsample_bn"]["bn"])
+
+
+def _state_dict_from_jax_midas_v21(variables) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_midas_v21``; refinenet4's unused
+    ``resConfUnit1`` (in the checkpoint, not in the JAX tree) is zeros."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _put_resnext(sd, p["pretrained"], variables["batch_stats"]["pretrained"],
+                 "pretrained.layer1.0", "pretrained.layer1.1",
+                 {1: "pretrained.layer1.4", 2: "pretrained.layer2",
+                  3: "pretrained.layer3", 4: "pretrained.layer4"})
     _put_midas_decoder(sd, p, zero_rcu1=True)
+    return sd
+
+
+def _state_dict_from_jax_leres(variables) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_leres``: the torchvision ResNeXt, then the
+    FTB / FFM / AO decoder with each BatchNorm's running stats."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    e = "depth_model.encoder_modules.encoder"
+    _put_resnext(sd, p["encoder"], st["encoder"], f"{e}.conv1", f"{e}.bn1",
+                 {i: f"{e}.layer{i}" for i in range(1, 5)})
+    d = "depth_model.decoder_modules"
+
+    def ftb(t, pe, se):
+        _put_conv(sd, f"{t}.conv1", pe["conv1"]["conv"])
+        _put_conv(sd, f"{t}.conv_branch.1", pe["branch_conv1"]["conv"])
+        _put_bn(sd, f"{t}.conv_branch.2", pe["branch_bn"]["bn"],
+                se["branch_bn"]["bn"])
+        _put_conv(sd, f"{t}.conv_branch.4", pe["branch_conv2"]["conv"])
+    ftb(f"{d}.conv", p["conv_ftb"], st["conv_ftb"])
+    _put_conv(sd, f"{d}.conv1", p["conv1"]["conv"])
+    for name in ("ffm2", "ffm1", "ffm0"):
+        for f in ("ftb1", "ftb2"):
+            ftb(f"{d}.{name}.{f}", p[name][f], st[name][f])
+    ao, ao_s = p["outconv"], st["outconv"]
+    _put_conv(sd, f"{d}.outconv.adapt_conv.0", ao["conv1"]["conv"])
+    _put_bn(sd, f"{d}.outconv.adapt_conv.1", ao["bn"]["bn"], ao_s["bn"]["bn"])
+    _put_conv(sd, f"{d}.outconv.adapt_conv.3", ao["conv2"]["conv"])
+    return sd
+
+
+def _put_mlp2(sd, name, entry):
+    """A ZoeDepth two-conv MLP: ``conv1`` / ``conv2`` -> ``_net.{0,2}``."""
+    _put_conv(sd, f"{name}._net.0", entry["conv1"]["conv"])
+    _put_conv(sd, f"{name}._net.2", entry["conv2"]["conv"])
+
+
+def _put_patch_transformer(sd, prefix: str, pt) -> None:
+    """The NK router's ``PatchTransformerEncoder`` (``l{i}_in_proj``... ->
+    torch's encoder-layer names under ``{prefix}transformer_encoder``)."""
+    _put_conv(sd, f"{prefix}embedding_convPxP", pt["embedding_conv"]["conv"])
+    n_layers = sum(1 for k in pt if k.endswith("_in_proj"))
+    for i in range(n_layers):
+        t = f"{prefix}transformer_encoder.layers.{i}"
+        sd[f"{t}.self_attn.in_proj_weight"] = _linear(
+            pt[f"l{i}_in_proj"]["kernel"])
+        sd[f"{t}.self_attn.in_proj_bias"] = _t(pt[f"l{i}_in_proj"]["bias"])
+        _put_linear(sd, f"{t}.self_attn.out_proj", pt[f"l{i}_out_proj"])
+        _put_linear(sd, f"{t}.linear1", pt[f"l{i}_linear1"])
+        _put_linear(sd, f"{t}.linear2", pt[f"l{i}_linear2"])
+        _put_ln(sd, f"{t}.norm1", pt[f"l{i}_norm1"])
+        _put_ln(sd, f"{t}.norm2", pt[f"l{i}_norm2"])
+
+
+def _state_dict_from_jax_zoe(m) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_zoedepth`` (n, k and nk, told apart by an
+    NK tree's ``head_nyu``): the BEiT DPT under ``core.core.``, then the
+    metric head in the reference's names."""
+    sd = {f"core.core.{k}": v for k, v in _dpt_state_dict(m["core"]).items()}
+    _put_conv(sd, "conv2", m["conv2"]["conv"])
+    _put_mlp2(sd, "seed_projector", m["seed_projector"])
+    for i in range(4):
+        _put_mlp2(sd, f"projectors.{i}", m[f"projector_{i}"])
+
+    def head(h, seed, attractors, clb, c):
+        _put_mlp2(sd, seed, h["seed_bin_regressor"])
+        for i in range(4):
+            _put_mlp2(sd, f"{attractors}.{i}", h[f"attractor_{i}"])
+        _put_conv(sd, f"{clb}.mlp.0", c["mlp_conv1"]["conv"])
+        _put_conv(sd, f"{clb}.mlp.2", c["mlp_conv2"]["conv"])
+    if "head_nyu" not in m:
+        head(m["head"], "seed_bin_regressor", "attractors",
+             "conditional_log_binomial", m["clb"])
+        return sd
+    for d in ("nyu", "kitti"):
+        head(m[f"head_{d}"], f"seed_bin_regressors.{d}", f"attractors.{d}",
+             f"conditional_log_binomial.{d}", m[f"clb_{d}"])
+    _put_patch_transformer(sd, "patch_transformer.", m["patch_transformer"])
+    _put_linear(sd, "mlp_classifier.0", m["mlp_classifier_0"])
+    _put_linear(sd, "mlp_classifier.2", m["mlp_classifier_2"])
     return sd
 
 
@@ -364,12 +480,21 @@ def state_dict_from_jax_da(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(model: nn.Module, path: str) -> None:
-    """Load a reference checkpoint with strict=True, after dropping the
-    timm classifier keys the DPT hooks never reach."""
+    """Load a reference checkpoint with strict=True.  ZoeDepth's state
+    dict is under ``model`` and LeReS's under ``depth_model``; the port's
+    modules hold them under that name, so their keys get it as a prefix
+    where they lack it.  ``module.`` is stripped and the keys no forward
+    reads (``_DEAD_KEYS``) are dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    prefix = ""
+    for wrap in ("model", "depth_model"):
+        if isinstance(sd.get(wrap), dict):
+            sd, prefix = sd[wrap], wrap + "."
+            break
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
-    sd = {k: v for k, v in sd.items() if not k.startswith(_HOOK_DEAD)}
+    sd = {k if k.startswith(prefix) else prefix + k: v
+          for k, v in sd.items() if not k.startswith(_DEAD_KEYS)}
     model.load_state_dict(sd, strict=True)
 
 
@@ -386,10 +511,11 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init (nothing is downloaded): linear/conv weights
     normal with std 1/sqrt(fan_in) and zero biases, LayerNorm, GroupNorm,
     BatchNorm (running mean 0, var 1) and LayerScale at 1, cls token and
-    rel-pos tables normal(0, 0.02).  The
-    numbers differ from the JAX package's init; tests carry weights across
-    with state_dict_from_jax instead.  DINOv2's position embeddings and mask
-    token are normal(0, 0.02) too, its LayerScale gammas 1."""
+    rel-pos tables normal(0, 0.02), the NK router's packed in-projection
+    as a linear weight.  The numbers differ from the JAX package's init;
+    tests carry weights across with state_dict_from_jax instead.  DINOv2's
+    position embeddings and mask token are normal(0, 0.02) too, its
+    LayerScale gammas 1."""
     g = torch.Generator(device="cpu").manual_seed(int(seed))
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
@@ -411,8 +537,11 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("gamma_1", "gamma_2", "gamma"):
             prm.fill_(1.0)
-        elif leaf in ("q_bias", "v_bias"):
+        elif leaf in ("q_bias", "v_bias", "in_proj_bias"):
             prm.zero_()
+        elif leaf == "in_proj_weight":
+            prm.copy_(torch.randn(prm.shape, generator=g)
+                      / math.sqrt(prm.shape[1]))
         elif leaf in ("cls_token", "relative_position_bias_table",
                       "pos_embed", "mask_token"):
             prm.copy_(torch.randn(prm.shape, generator=g) * 0.02)

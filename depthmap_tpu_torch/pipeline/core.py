@@ -5,8 +5,9 @@ Port of ``depthmap_tpu/pipeline/core.py``: a generator yielding
 the JAX funnel yields PIL images: 'depth' is (H, W) uint16, 'concat_depth'
 and the stereo modes are uint8 RGB.
 
-Ported models: the MiDaS / DPT zoo (types 1-6) and Depth Anything v1 /
-v2 (the default options' model, Depth Anything v2 Base).  Ported outputs:
+Ported models: LeReS (type 0), the MiDaS / DPT zoo (types 1-6), ZoeDepth
+n / k / nk (types 7-9) and Depth Anything v1 / v2 (the default options'
+model, Depth Anything v2 Base); Marigold (type 10) raises.  Ported outputs:
 depth (plain, inverted, concatenated), depth_prediction, stereo with all
 five fills, the normal map ((H, W, 3) uint8, computed on the funnel's
 device), the heatmap ((H, W, 4) uint8) and the simple mesh (the path of
@@ -35,7 +36,7 @@ from depthmap_tpu_torch.pipeline.depth import DepthPredictor
 from depthmap_tpu_torch.registry import resolve_model_type
 
 _NOT_PORTED = {
-    "boost": "Queue 1 item 10 (LeReS + Boost)",
+    "boost": "Queue 1 item 10 (Boost)",
     "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
     "gen_inpainted_mesh": "Queue 1 item 13 (3D photo)",
 }

@@ -1,18 +1,22 @@
 """Depth prediction engine (torch).
 
-Port of ``depthmap_tpu/pipeline/depth.py``'s DepthPredictor for the BEiT
-DPT and Depth Anything models: preprocessing, the forward and the upsample
-back to the input size run on the predictor's device;
-``predict_finalized*`` also finalize to uint16 there, so only the uint16
-map goes to the host.  What a backbone computes per grid from its
-parameters alone (BEiT's relative-position biases, DINOv2's resized
-position embeddings) is computed once per grid and kept.
+Port of ``depthmap_tpu/pipeline/depth.py``'s DepthPredictor for every
+ported model (LeReS, the MiDaS / DPT zoo, ZoeDepth, Depth Anything):
+preprocessing, the forward and the upsample back to the input size run on
+the predictor's device; ``predict_finalized*`` also finalize to uint16
+there, so only the uint16 map goes to the host.  ZoeDepth resizes and
+normalizes inside its module and returns the map at the input size; its
+relative-depth core runs in ``core_dtype``, its metric head in f32.  What
+a backbone computes per grid from its parameters alone (BEiT's
+relative-position biases, DINOv2's resized position embeddings) is
+computed once per net input size and kept.
 
 Device: "cuda" (or a cuda:N) needs CUDA and raises without it; "cpu" runs
 everything on the host, attention through K1's plain version.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -40,7 +44,43 @@ def set_fp32_precision(dev: torch.device) -> None:
 
 
 def default_compute_dtype(model_type: int) -> torch.dtype:
+    """bf16 for BF16_MODEL_TYPES, else f32; DEPTHMAP_COMPUTE_DTYPE (a
+    dtype name, e.g. "float32") overrides it for every model."""
+    env = os.environ.get("DEPTHMAP_COMPUTE_DTYPE")
+    if env:
+        return _dtype(env)
     return torch.bfloat16 if model_type in BF16_MODEL_TYPES else torch.float32
+
+
+def _dtype(name) -> torch.dtype:
+    """A torch dtype from a dtype or its name ("bfloat16", "float32")."""
+    return getattr(torch, name) if isinstance(name, str) else name
+
+
+def precision(model_type: int, compute_dtype=None,
+              selective_core: Optional[str] = None
+              ) -> Tuple[torch.dtype, torch.dtype]:
+    """(compute dtype, core dtype) of a predictor, the JAX package's
+    policy: the given ``compute_dtype`` or the default, and the same for
+    the core, except under a bundle's ``selective_core`` when neither an
+    explicit ``compute_dtype`` (the funnel's no_half) nor
+    DEPTHMAP_COMPUTE_DTYPE is given: "zoe_core_env" runs the core in
+    DEPTHMAP_ZOE_CORE_DTYPE (bf16 by default) beside the head;
+    "knk_head_f32" runs the core in bf16 and the head in f32 unless
+    DEPTHMAP_ZOE_KNK_HEAD_F32=0 (then bf16 throughout, the reference's
+    whole-model half)."""
+    explicit = compute_dtype is not None
+    compute = _dtype(compute_dtype) if explicit else \
+        default_compute_dtype(model_type)
+    core = compute
+    if explicit or "DEPTHMAP_COMPUTE_DTYPE" in os.environ:
+        return compute, core
+    if selective_core == "zoe_core_env":
+        core = _dtype(os.environ.get("DEPTHMAP_ZOE_CORE_DTYPE", "bfloat16"))
+    elif selective_core == "knk_head_f32" and \
+            os.environ.get("DEPTHMAP_ZOE_KNK_HEAD_F32") != "0":
+        compute, core = torch.float32, torch.bfloat16
+    return compute, core
 
 
 class DepthPredictor:
@@ -57,11 +97,8 @@ class DepthPredictor:
         self.tiling_mode = tiling_mode
         self.bundle = bundle if bundle is not None else \
             build_model(self.model_type)
-        if compute_dtype is None:
-            compute_dtype = default_compute_dtype(self.model_type)
-        if isinstance(compute_dtype, str):
-            compute_dtype = getattr(torch, compute_dtype)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.core_dtype = precision(
+            self.model_type, compute_dtype, self.bundle.selective_core)
         module = self.bundle.module
         from depthmap_tpu_torch.models import weights
         if state_dict is not None:
@@ -76,6 +113,8 @@ class DepthPredictor:
         set_tiling_mode(module, tiling_mode)
         module.to(device=self.device, dtype=self.compute_dtype)
         module.head_to_f32()
+        if self.core_dtype != self.compute_dtype:
+            module.core_to(self.core_dtype)
         module.eval()
         # net input (H, W) -> the module's forward inputs (grid_inputs)
         self._grid_inputs: Dict[Tuple[int, int], Dict[str, Any]] = {}
@@ -83,12 +122,12 @@ class DepthPredictor:
     # -- inference ---------------------------------------------------------
     def grid_inputs(self, input_hw: Tuple[int, int]) -> Dict[str, Any]:
         """The module's keyword inputs for a net input of ``input_hw``
-        (what it computes from its parameters per grid; the conv models
-        have none), computed on the first forward at that size and
-        kept."""
+        (what it computes from its parameters per grid, in the core's
+        dtype; the conv models have none), computed on the first forward
+        at that size and kept."""
         if input_hw not in self._grid_inputs:
             self._grid_inputs[input_hw] = self.bundle.module.grid_inputs(
-                input_hw, self.compute_dtype)
+                input_hw, self.core_dtype)
         return self._grid_inputs[input_hw]
 
     @torch.no_grad()
@@ -96,6 +135,8 @@ class DepthPredictor:
                  resize_mode: Optional[str] = None) -> torch.Tensor:
         """(N, H, W, 3) float RGB in [0, 1] on the device -> (N, H, W) f32
         raw prediction at the input size."""
+        if self.bundle.prep_in_model:
+            return self._forward_in_model(imgs01, net_w, net_h)
         x = preprocess_images(imgs01, net_w, net_h, self.bundle.preprocess,
                               resize_mode)
         pred = self.bundle.module(x.to(self.compute_dtype),
@@ -104,6 +145,22 @@ class DepthPredictor:
         out_h, out_w = imgs01.shape[1:3]
         return interpolate(pred, (out_h, out_w), self.bundle.upsample_mode,
                            self.bundle.upsample_align_corners)[:, 0]
+
+    def _forward_in_model(self, imgs01: torch.Tensor, net_w: int,
+                          net_h: int) -> torch.Tensor:
+        """ZoeDepth: the image in [0, 1] (channels swapped as the bundle
+        says) in the compute dtype, the grid inputs of the net input that
+        ``net_input_size`` gives; the module returns the input size."""
+        x = imgs01.to(torch.float32)
+        if self.bundle.preprocess.swap_channels:
+            x = x.flip(-1)
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
+        module = self.bundle.module
+        h, w = x.shape[2:]
+        net_size = (net_h, net_w)
+        input_hw = module.net_input_size(h, w, net_size, module.img_size)
+        pred = module(x, net_size=net_size, **self.grid_inputs(input_hw))
+        return pred.to(torch.float32)
 
     def _to_device(self, imgs01) -> torch.Tensor:
         return torch.as_tensor(np.asarray(imgs01, np.float32)).to(

@@ -2,9 +2,13 @@
 
 Port of ``depthmap_tpu/pipeline/preprocess.py``: the MiDaS ``Resize`` rule
 (keep aspect ratio, lower_bound / upper_bound / minimal, constrain to a
-multiple) is restated as is; the resize itself is torch's bicubic
-(a = -0.75, align_corners=False, no antialias), which agrees with cv2's
-INTER_CUBIC to float rounding, so no cv2 is needed.
+multiple) is restated as is.  The config names its resize by cv2's
+interpolation code, as the JAX package's does, and torch computes it:
+INTER_CUBIC is torch's bicubic (a = -0.75, align_corners=False, no
+antialias), INTER_LINEAR its bilinear (align_corners=False, no antialias),
+each of which agrees with cv2's float resize to float rounding (at an exact
+2x downscale cv2 switches INTER_LINEAR to INTER_AREA, the same 2 x 2 mean),
+so no cv2 is needed.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 HALF_MEAN = (0.5, 0.5, 0.5)
 HALF_STD = (0.5, 0.5, 0.5)
+# cv2's interpolation codes (cv2.INTER_LINEAR, cv2.INTER_CUBIC) -> torch mode
+INTER_LINEAR, INTER_CUBIC = 1, 2
+_TORCH_MODE = {INTER_LINEAR: "bilinear", INTER_CUBIC: "bicubic"}
 
 
 def constrain_to_multiple_of(x: float, multiple_of: int, min_val: int = 0,
@@ -85,8 +92,9 @@ class PreprocessCfg:
     std: Tuple[float, float, float] = IMAGENET_STD
     multiple_of: int = 32
     keep_aspect_ratio: bool = True
-    # The reference hands channel-swapped (BGR) images to the MiDaS nets;
-    # replicated for output parity.
+    interpolation: int = INTER_CUBIC
+    # The reference hands channel-swapped (BGR) images to the MiDaS and
+    # ZoeDepth nets (LeReS swaps back); replicated for output parity.
     swap_channels: bool = False
 
 
@@ -112,7 +120,8 @@ def preprocess_images(imgs01: torch.Tensor, net_w: int, net_h: int,
     x = x.permute(0, 3, 1, 2)
     new_w, new_h = net_input_size(x.shape[3], x.shape[2], net_w, net_h, cfg,
                                   resize_mode)
-    x = interpolate(x, (new_h, new_w), "bicubic", False)
+    x = interpolate(x, (new_h, new_w), _TORCH_MODE[cfg.interpolation],
+                    False)
     mean = torch.tensor(cfg.mean, dtype=torch.float32,
                         device=x.device).view(1, 3, 1, 1)
     std = torch.tensor(cfg.std, dtype=torch.float32,

@@ -2,8 +2,7 @@
 
 Restated from ``depthmap_tpu/registry.py`` (held equal by
 tests/test_torch_port_funnel.py).  The integer ids and string names are the
-public API.  Only types 1 and 2 (the BEiT-L DPT models) build in this port
-so far; see models/build.py.
+public API.  Which types build in this port: see models/build.py.
 """
 from __future__ import annotations
 
@@ -80,8 +79,24 @@ def resolve_model_type(model_type) -> int:
     raise KeyError(f"Unknown model type {model_type!r}")
 
 
+# Reference-exact defaults for the ZoeDepth family (types 7-9).  The
+# reference's get_default_net_size returns the dzoedepth configs' img_size
+# pairs, which are (height, width), and its UI reads them as (width,
+# height); the registry keeps the right orientation, and
+# DEPTHMAP_REFERENCE_DEFAULTS=1 restores the reference's literal pairs.
+_REFERENCE_NET_SIZES = {7: (384, 512), 8: (384, 768), 9: (384, 512)}
+
+
+def reference_defaults_enabled() -> bool:
+    import os
+    return os.environ.get("DEPTHMAP_REFERENCE_DEFAULTS", "0") not in (
+        "0", "", "false", "False")
+
+
 def get_default_net_size(model_type) -> Tuple[int, int]:
-    """(width, height) of the registry.  The JAX package's
-    DEPTHMAP_REFERENCE_DEFAULTS switch for the ZoeDepth family is not
-    carried over: ZoeDepth is not ported yet."""
-    return MODELS[resolve_model_type(model_type)].default_net_size
+    """(width, height) of the registry, or the reference's literal pair
+    for types 7-9 under DEPTHMAP_REFERENCE_DEFAULTS."""
+    mid = resolve_model_type(model_type)
+    if mid in _REFERENCE_NET_SIZES and reference_defaults_enabled():
+        return _REFERENCE_NET_SIZES[mid]
+    return MODELS[mid].default_net_size

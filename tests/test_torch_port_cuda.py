@@ -17,9 +17,11 @@ is peaked and the outputs (up to ~1.4) stand far above the bound where a
 kernel errs; each case also checks that the answers of planted faults (a
 kv tile skipped, the output scaled by 0.8) break the bound.
 K2 and the warp stereo fills are byte-exact.  Small Depth Anything, ViT
-and hybrid DPT forwards in f32 on the card (K1 bias-free, TF32 off), and
-the conv nets midas_v21 / midas_v21_small (no K1), hold to 1e-3 of the CPU
-map's range, the bound chip_smoke.py holds the whole path to.  The normal
+and hybrid DPT forwards in f32 on the card (K1 bias-free, TF32 off), small
+ZoeDepth n / k / nk forwards (a BEiT core: K1 with a bias shared across
+the flip-TTA batch), and the conv nets midas_v21 / midas_v21_small and
+LeReS (no K1), hold to 1e-3 of the CPU map's range, the bound
+chip_smoke.py holds the whole path to.  The normal
 map on the card holds to its CPU twin within |d| <= 1 on <= 0.1% of the
 bytes.
 """
@@ -41,7 +43,10 @@ from depthmap_tpu_torch.ops import stereo as S
 # ragged last kv tiles at 1370, 1825 and 10765.  The MiDaS 3.0 ViTs (16
 # heads for ViT-L, 12 for the hybrid's ViT-B) run N = 577 (a 24 x 24 grid:
 # one key in the last kv tile) and 1009 (1080p at net 384: 42 x 24), and
-# BEiT-384 N = 577 with a bias (rows padded to 592).
+# BEiT-384 N = 577 with a bias (rows padded to 592).  ZoeDepth's BEiT-384
+# core runs under flip TTA, one bias shared across the doubled batch: N =
+# 1025 at batch 8 and 1009 at batch 2 (n / nk), 2305 at batch 8 and 1345
+# at batch 2 (k), and 769 in f32 (the numerics phase's 384 x 512 image).
 K1_CASES = {
     "bf16_shared_1025": (torch.bfloat16, 4, 16, 1025, 1025, "shared", None),
     "bf16_shared_1793": (torch.bfloat16, 1, 16, 1793, 1793, "shared", None),
@@ -67,6 +72,15 @@ K1_CASES = {
     "bf16_none_h12_1009": (torch.bfloat16, 1, 12, 1009, 1009, None, None),
     "bf16_shared_h16_577": (torch.bfloat16, 1, 16, 577, 577, "shared",
                             None),
+    "bf16_shared_b8_1025": (torch.bfloat16, 8, 16, 1025, 1025, "shared",
+                            None),
+    "bf16_shared_b2_1009": (torch.bfloat16, 2, 16, 1009, 1009, "shared",
+                            None),
+    "bf16_shared_b8_2305": (torch.bfloat16, 8, 16, 2305, 2305, "shared",
+                            None),
+    "bf16_shared_b2_1345": (torch.bfloat16, 2, 16, 1345, 1345, "shared",
+                            None),
+    "f32_shared_b2_769": (torch.float32, 2, 16, 769, 769, "shared", None),
 }
 
 
@@ -463,17 +477,41 @@ def _small_zoo_model(kind: str) -> torch.nn.Module:
         for c in efficientnet.LITE3))
 
 
+def _small_metric_model(kind: str) -> torch.nn.Module:
+    """Small stand-ins of types 0 and 7-9: LeReS on a one-block ResNeXt (8
+    groups of width 4); ZoeDepth with 8 bins on a BEiT core of embed 128,
+    2 heads of D = 64, depth 4, training size 64, in-model size 64 x 64."""
+    from depthmap_tpu_torch.models import leres, zoedepth
+    from depthmap_tpu_torch.models.beit import BeitBackbone
+    from depthmap_tpu_torch.models.dpt import DPTDepthModel
+    if kind == "leres":
+        return leres.build_leres(layers=(1, 1, 1, 1), groups=8,
+                                 width_per_group=4)
+    core = DPTDepthModel(BeitBackbone(embed_dim=128, depth=4, num_heads=2,
+                                      hooks=(0, 1, 2, 3), train_img_size=64),
+                         (16, 32, 64, 64), 32, with_zoe_taps=True)
+    head = dict(n_bins=8, bin_embedding_dim=16)
+    inner = zoedepth.ZoeDepthNK(core, **head) if kind == "zoe_nk" else \
+        zoedepth.ZoeDepth(core, **head, **(
+            dict(max_depth=80.0, bin_centers_type="normed")
+            if kind == "zoe_k" else {}))
+    return zoedepth.ZoeDepthInference(inner, (64, 64))
+
+
 # kind -> (model type, K1 launches a forward on the card)
-ZOO = {"vit": (3, 4), "hybrid": (4, 4), "v21": (5, 0), "small": (6, 0)}
+ZOO = {"vit": (3, 4), "hybrid": (4, 4), "v21": (5, 0), "small": (6, 0),
+       "leres": (0, 0), "zoe_n": (7, 4), "zoe_k": (8, 4), "zoe_nk": (9, 4)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(ZOO))
 def test_small_zoo_card_matches_cpu(kind):
-    """Types 3-6 at a small size through the predictor in f32 (net 100 on a
-    75 x 130 image: the ViTs' position embeddings are resized), card
-    against CPU; K1 runs every ViT block on the card, never on the CPU,
-    and never in a conv net."""
+    """Types 0 and 3-9 at a small size through the predictor in f32 (net
+    100 on a 75 x 130 image: the ViTs' position embeddings and the BEiT
+    core's bias table are resized; LeReS squashes to 96, a multiple of its
+    stride 32), card against CPU; K1 runs every ViT
+    block on the card (ZoeDepth's once for the flip-TTA batch), never on
+    the CPU, and never in a conv net."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -481,7 +519,8 @@ def test_small_zoo_card_matches_cpu(kind):
     from depthmap_tpu_torch.models.weights import init_random_
     from depthmap_tpu_torch.pipeline.depth import DepthPredictor
     mt, launches = ZOO[kind]
-    sd = init_random_(_small_zoo_model(kind), seed=2).state_dict()
+    small = _small_zoo_model if mt in (3, 4, 5, 6) else _small_metric_model
+    sd = init_random_(small(kind), seed=2).state_dict()
     with torch.device("meta"):
         bundle = build_model(mt)
     img = np.random.default_rng(3).random((2, 75, 130, 3)).astype(np.float32)
@@ -489,9 +528,10 @@ def test_small_zoo_card_matches_cpu(kind):
     for dev in ("cuda", "cpu"):
         pred = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
                               device=dev, bundle=dataclasses.replace(
-                                  bundle, module=_small_zoo_model(kind)))
+                                  bundle, module=small(kind)))
         before = fa.flash_attention_cuda.launches
-        out[dev] = pred.predict_batch(img, 100, 100)
+        net = 96 if kind == "leres" else 100
+        out[dev] = pred.predict_batch(img, net, net)
         out[dev + "_launches"] = fa.flash_attention_cuda.launches - before
     assert (out["cuda_launches"], out["cpu_launches"]) == (launches, 0)
     rng_ = float(np.ptp(out["cpu"]))

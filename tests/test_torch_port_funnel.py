@@ -184,9 +184,12 @@ def test_unported_options_raise(rng):
         inp = TOptions(compute_device="CPU", **{opt: True})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
+    with pytest.raises(NotImplementedError, match=r"item 10 \(Boost\)"):
+        list(tcore.core_generation_funnel(
+            None, imgs, dm, None, TOptions(compute_device="CPU", boost=True)))
     from depthmap_tpu_torch.models.build import build_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(7)
+    with pytest.raises(NotImplementedError, match=r"item 12 \(Marigold\)"):
+        build_model(10)
 
 
 def test_cli_depthmap_stereo(rng, tmp_path):

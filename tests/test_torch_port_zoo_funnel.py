@@ -1,10 +1,14 @@
-"""The MiDaS zoo's types 2, 4, 5 and 6 through both funnels on the same
-weights (type 3 runs in tests/test_torch_port_outputs.py).
+"""LeReS (type 0), the MiDaS zoo's types 2, 4, 5 and 6 and ZoeDepth n / k /
+nk (types 7-9) through both funnels on the same weights (type 3 runs in
+tests/test_torch_port_outputs.py).
 
 Each type's bundle (preprocess, resize rule, upsample) is the full-width
-one; its module is the small stand-in of tests/test_torch_port_midas.py
-(BEiT-384's is a small BEiT with a 3 x 3 training window, so its
-relative-position table is resized).  Two same-shape images ride the
+one; its module is the small stand-in of tests/test_torch_port_midas.py,
+tests/test_torch_port_leres.py or tests/test_torch_port_zoedepth.py
+(BEiT-384's is a small BEiT with a 3 x 3 training window, ZoeDepth's core
+one with a 4 x 4 window, so their relative-position tables are resized;
+ZoeDepth's in-model resize takes the 48 x 80 images to a 64 x 96 net
+input, the 40 x 40 one to 64 x 64).  Two same-shape images ride the
 port's batched pre-pass, a third the serial path, with depth, normal map
 and heatmap; the uint16 maps are held to I16_TOL counts, the derived
 outputs to the JAX package's own functions on the port's map.  Then the
@@ -27,13 +31,16 @@ from depthmap_tpu.options import GenerationOptions as JOptions
 from depthmap_tpu.pipeline import core as jcore
 from depthmap_tpu_torch.options import GenerationOptions as TOptions
 from depthmap_tpu_torch.pipeline import core as tcore
+from tests import test_torch_port_zoedepth as zoe
 from tests.test_torch_port_funnel import I16_TOL, _FixedCache, _images, _run
-from tests.test_torch_port_midas import _draw, jax_model, small_encoders, \
-    torch_model  # noqa: F401  (small_encoders is a fixture)
+from tests.test_torch_port_leres import small_resnext  # noqa: F401
+from tests.test_torch_port_midas import RESNEXT, _draw, jax_model, \
+    small_encoders, torch_model  # noqa: F401  (fixtures)
 from tests.test_torch_port_outputs import assert_normals_close
 
 # model type -> the small stand-in's kind
-KIND = {2: "beit384", 4: "hybrid", 5: "v21", 6: "small"}
+KIND = {0: "leres", 2: "beit384", 4: "hybrid", 5: "v21", 6: "small",
+        7: "zoe_n", 8: "zoe_k", 9: "zoe_nk"}
 BEIT = dict(embed_dim=64, depth=4, num_heads=4, hooks=(0, 1, 2, 3),
             train_img_size=48)
 BEIT_CHANNELS = (16, 32, 64, 64)
@@ -57,14 +64,22 @@ def _predictors(mt: int, seed: int):
     from depthmap_tpu_torch.models.build import build_model
     from depthmap_tpu_torch.models.weights import state_dict_from_jax
     from depthmap_tpu_torch.pipeline.depth import DepthPredictor as TPred
+    from depthmap_tpu.models.leres import RelDepthModel
+    from depthmap_tpu_torch.models.leres import build_leres
     kind = KIND[mt]
-    jm = _beit("jax") if kind == "beit384" else jax_model(kind)
+    if kind.startswith("zoe"):
+        jm, tm = zoe.models(kind[4:], beit=True)
+    elif kind == "leres":
+        jm, tm = RelDepthModel(), build_leres(**RESNEXT)
+    elif kind == "beit384":
+        jm, tm = _beit("jax"), _beit("torch")
+    else:
+        jm, tm = jax_model(kind), torch_model(kind)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)))
     variables = _draw(shapes, seed)
     jp = JPred(mt, params=variables, compute_dtype="float32")
     jp.bundle = dataclasses.replace(jp.bundle, module=jm)
-    tm = _beit("torch") if kind == "beit384" else torch_model(kind)
     with torch.device("meta"):
         bundle = build_model(mt)
     tp = TPred(mt, state_dict=state_dict_from_jax(variables),
@@ -74,7 +89,8 @@ def _predictors(mt: int, seed: int):
 
 
 @pytest.mark.parametrize("mt", sorted(KIND))
-def test_zoo_funnel_matches_jax(small_encoders, rng, tmp_path, mt):
+def test_zoo_funnel_matches_jax(small_encoders, small_resnext, rng, tmp_path,
+                                mt):
     jp, tp = _predictors(mt, seed=30 + mt)
 
     class JCache(jcore.PredictorCache):
