@@ -17,9 +17,18 @@ and prints no result):
      N up to 10765; the MiDaS 3.0 ViTs at N = 577, where the last kv tile
      holds one key, and 1009; ZoeDepth's BEiT-L 384 core under flip TTA,
      its bias shared across the doubled batch: N = 1025 and 2305 at
-     batch 8, 1009 and 1345 at batch 2, and 769 in f32), on inputs that
-     peak the softmax
-     (K1_Q_SCALE); per case the kernel's time (CUDA events over 20 calls;
+     batch 8, 1009 and 1345 at batch 2, and 769 in f32; Boost on BEiT-L
+     512, bf16 with the bias shared across the batch: the whole image at
+     R_x 1536 on a 4:3 input (N = 6913) and on a square one (9217), the
+     patches at 1024^2 (4 x 4097) and 512^2 (4 x 1025), the whole image at
+     512 on a 4:3 input (769); Marigold's UNet at res 768 on a 4:3 input,
+     bias-free, in f32 (what its attention runs in, in either dtype: in
+     bf16 the UNet, as flax's promotion makes the JAX one, runs in f32
+     past its first time-embedding add) and in bf16 (the tensor-core body
+     at the same shapes): self-attention at (5, 5, 6912), (5, 10, 1728),
+     (5, 20, 432) and (5, 20, 108), and cross-attention on the 77 keys of
+     the empty prompt at each of those), on inputs that peak the softmax
+     (K1_Q_SCALE); per case the kernel's time (CUDA events over 10 calls;
      and its device time from torch.profiler, which leaves out the host's
      launch gaps that the events hold at the short shapes), the plain
      version's, SDPA's on the same tensors, both ways (the efficient
@@ -79,8 +88,26 @@ and prints no result):
      forward for each ZoeDepth model (N = 1025 / 1009 for n and nk, 2305
      with the inline per-block bias / 1345 for k), never for LeReS; each
      at its default precision, checked: ZoeDepth's core in bf16 beside its
-     f32 metric head, LeReS in f32.
-Each model path (4, 6, 7, 9, 10, 12) sets every kernel count to 0 just
+     f32 metric head, LeReS in f32;
+ 13. Boost through the funnel (DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1, r_max
+     1600), a warm run a model and a timed run an image: res101 (LeReS,
+     f32, no kernel) on a 1080p and a 4:3 image, dpt_beit_large_512 on a
+     textured 4:3 image whose whole-image pass runs at R_x 1536 (N =
+     6913): R_x, the
+     patches, s per image, peak memory, and K1 24 times a forward (two
+     whole-image forwards and two a chunk of 4 patches); then the device
+     chain (crop-resize, fit, blend) at 1080p with P = 1024 and the
+     full-width pix2pix (1024^2, batch 1, f32), card against CPU;
+ 14. Marigold (type 10) through the funnel: a 4:3 image at res 768
+     (latent 96 x 72), ensemble 5, 12 steps, in f32 (its default) and in
+     bf16 (DEPTHMAP_MARIGOLD_DTYPE: bf16 weights, the VAE in bf16, the
+     UNet in f32 past its first time-embedding add, the attention's
+     dtype logged), one warm and one timed run each: K1 32
+     times a UNet forward, 384 an image; s per image, peak memory; then the
+     full-width nets at processing_res 64, ensemble 2, 2 steps, the same
+     noise, f32, card against CPU (the members before the ensemble).
+Each model path (4, 6, 7, 9, 10, 12, 13, 14) sets every kernel count to 0
+just
 before each timed run and reads it just after.  With --profile, torch.profiler
 over one warm funnel run per path gives each path's device time and K1's
 / K2's share of it (K2: both stages).  The last lines: the card's name and power
@@ -91,6 +118,7 @@ and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -129,7 +157,11 @@ PATH_RTOL = 1e-3
 SELECTIVE_DRIFT_RATIO = 2.0
 # timed runs of the main path (each resets and checks the launch counts),
 # for the spread of its host-clock times
-MAIN_RUNS = 3
+MAIN_RUNS = 2
+# Boost's device chain, card against the port's CPU (max abs error, maps in
+# [0, 1]): the same f32 weight matrices (built with the same operations),
+# products summed over up to 3000 terms in another order
+BOOST_CHAIN_TOL = 2e-5
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): memory
 # bytes/s, bf16 tensor-core and f32 CUDA-core flop/s
 HBM_BPS = 3.35e12
@@ -241,6 +273,70 @@ def phase_build():
                              "body does not run on the tensor cores")
 
 
+K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
+    # where it is not given); the first two
+    # are the BEiT path's bf16 calls, f32_b1_n1025_shared its f32 call of
+    # phase 5; every bias is in the padded-row layout.  The bias-free
+    # h6/h12/h16 cases are Depth Anything's calls: v2 Base at 512^2
+    # (net 448, N = 1025) and 1080p (N = 1825), its f32 call at 518^2
+    # (N = 1370), v2 Large at 518^2 and at 1080p with net_size_match
+    # (N = 10765, bound by operations)
+    ("bf16_b4_h16_n1025_shared", "bfloat16", 4, 16, 1025, 1),
+    ("bf16_b1_h16_n1793_shared", "bfloat16", 1, 16, 1793, 1),
+    ("bf16_b2_h16_n1025_shared", "bfloat16", 2, 16, 1025, 1),
+    ("bf16_b2_h16_n1025_none", "bfloat16", 2, 16, 1025, None),
+    ("f32_b1_h16_n1025_shared", "float32", 1, 16, 1025, 1),
+    ("f32_b2_h16_n130_batched", "float32", 2, 16, 130, 2),
+    ("f32_b2_h16_n130_none", "float32", 2, 16, 130, None),
+    ("f32_b2_h16_n513_batched", "float32", 2, 16, 513, 2),
+    ("f32_b2_h16_n513_none", "float32", 2, 16, 513, None),
+    ("bf16_b4_h12_n1025_none", "bfloat16", 4, 12, 1025, None),
+    ("bf16_b1_h12_n1825_none", "bfloat16", 1, 12, 1825, None),
+    ("bf16_b1_h16_n1370_none", "bfloat16", 1, 16, 1370, None),
+    ("bf16_b1_h16_n10765_none", "bfloat16", 1, 16, 10765, None),
+    ("f32_b1_h12_n1370_none", "float32", 1, 12, 1370, None),
+    # MiDaS 3.0: ViT-L (16 heads) and the hybrid's ViT-B (12) at 512^2
+    # on net 384 (a 24 x 24 grid: N = 577, one key in the last kv
+    # tile) and at 1080p (672 x 384: 42 x 24, N = 1009); BEiT-384's
+    # biased call at N = 577 (rows padded to 592)
+    ("bf16_b4_h16_n577_none", "bfloat16", 4, 16, 577, None),
+    ("bf16_b1_h16_n1009_none", "bfloat16", 1, 16, 1009, None),
+    ("bf16_b4_h12_n577_none", "bfloat16", 4, 12, 577, None),
+    ("bf16_b1_h12_n1009_none", "bfloat16", 1, 12, 1009, None),
+    ("bf16_b1_h16_n577_shared", "bfloat16", 1, 16, 577, 1),
+    # ZoeDepth's BEiT-L 384 under flip TTA (batch = 2 x images, one
+    # bias for all): n / nk at 4 x 512^2 (net 512^2, N = 1025) and
+    # 1080p (384 x 672, N = 1009); k at 4 x 512^2 (768^2, N = 2305,
+    # the inline per-block bias) and 1080p (448 x 768, N = 1345); the
+    # f32 call of phase 5 at 384 x 512 (N = 769)
+    ("bf16_b8_h16_n1025_shared", "bfloat16", 8, 16, 1025, 1),
+    ("bf16_b2_h16_n1009_shared", "bfloat16", 2, 16, 1009, 1),
+    ("bf16_b8_h16_n2305_shared", "bfloat16", 8, 16, 2305, 1),
+    ("bf16_b2_h16_n1345_shared", "bfloat16", 2, 16, 1345, 1),
+    ("f32_b2_h16_n769_shared", "float32", 2, 16, 769, 1),
+    # Boost on BEiT-L 512 (bf16, one bias for the batch; above
+    # BIAS_HOIST_CAP each block gathers its own): the whole image at R_x
+    # 1536 (1536 x 1152 on a 4:3 input: 96 x 72 + 1; 1536^2: 96^2 + 1),
+    # the patches at 1024^2 (64^2 + 1; at 512^2 they are the main
+    # path's (4, 16, 1025) above), the whole image at 512 on a 4:3
+    # input (32 x 24 + 1)
+    ("bf16_b1_h16_n6913_shared", "bfloat16", 1, 16, 6913, 1),
+    ("bf16_b1_h16_n9217_shared", "bfloat16", 1, 16, 9217, 1),
+    ("bf16_b4_h16_n4097_shared", "bfloat16", 4, 16, 4097, 1),
+    ("bf16_b1_h16_n769_shared", "bfloat16", 1, 16, 769, 1),
+    # Marigold's UNet at res 768 on a 4:3 input (latent 96 x 72,
+    # ensemble 5 on the batch): self-attention at the four levels,
+    # bias-free, then cross-attention on the empty prompt's 77 keys (13
+    # in the last kv tile); f32 is what the UNet's attention runs in (in
+    # its bf16 mode too), bf16 holds the tensor-core body at its shapes
+    *[(f"{dn}_b5_h{h}_n{n}_{kind}", dt, 5, h, n, None,
+       *((77,) if kind == "cross77" else ()))
+      for dn, dt in (("f32", "float32"), ("bf16", "bfloat16"))
+      for kind in ("self", "cross77")
+      for h, n in ((5, 6912), (10, 1728), (20, 432), (20, 108))],
+]
+
+
 def k1_bound(b, h, n, nk, bias_batch, dtype):
     """K1's bound: q, k, v, out and the bias's N x Nk entries moved once;
     4.B.H.N.Nk.D flops."""
@@ -277,85 +373,45 @@ def phase_k1():
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from depthmap_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(1)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (name, dtype, B, H, N, bias batch or None); the first two
-        # are the BEiT path's bf16 calls, f32_b1_n1025_shared its f32 call of
-        # phase 5; every bias is in the padded-row layout.  The bias-free
-        # h6/h12/h16 cases are Depth Anything's calls: v2 Base at 512^2
-        # (net 448, N = 1025) and 1080p (N = 1825), its f32 call at 518^2
-        # (N = 1370), v2 Large at 518^2 and at 1080p with net_size_match
-        # (N = 10765, bound by operations)
-        ("bf16_b4_h16_n1025_shared", bf16, 4, 16, 1025, 1),
-        ("bf16_b1_h16_n1793_shared", bf16, 1, 16, 1793, 1),
-        ("bf16_b2_h16_n1025_shared", bf16, 2, 16, 1025, 1),
-        ("bf16_b2_h16_n1025_none", bf16, 2, 16, 1025, None),
-        ("f32_b1_h16_n1025_shared", f32, 1, 16, 1025, 1),
-        ("f32_b2_h16_n130_batched", f32, 2, 16, 130, 2),
-        ("f32_b2_h16_n130_none", f32, 2, 16, 130, None),
-        ("f32_b2_h16_n513_batched", f32, 2, 16, 513, 2),
-        ("f32_b2_h16_n513_none", f32, 2, 16, 513, None),
-        ("bf16_b4_h12_n1025_none", bf16, 4, 12, 1025, None),
-        ("bf16_b1_h12_n1825_none", bf16, 1, 12, 1825, None),
-        ("bf16_b1_h16_n1370_none", bf16, 1, 16, 1370, None),
-        ("bf16_b1_h16_n10765_none", bf16, 1, 16, 10765, None),
-        ("f32_b1_h12_n1370_none", f32, 1, 12, 1370, None),
-        # MiDaS 3.0: ViT-L (16 heads) and the hybrid's ViT-B (12) at 512^2
-        # on net 384 (a 24 x 24 grid: N = 577, one key in the last kv
-        # tile) and at 1080p (672 x 384: 42 x 24, N = 1009); BEiT-384's
-        # biased call at N = 577 (rows padded to 592)
-        ("bf16_b4_h16_n577_none", bf16, 4, 16, 577, None),
-        ("bf16_b1_h16_n1009_none", bf16, 1, 16, 1009, None),
-        ("bf16_b4_h12_n577_none", bf16, 4, 12, 577, None),
-        ("bf16_b1_h12_n1009_none", bf16, 1, 12, 1009, None),
-        ("bf16_b1_h16_n577_shared", bf16, 1, 16, 577, 1),
-        # ZoeDepth's BEiT-L 384 under flip TTA (batch = 2 x images, one
-        # bias for all): n / nk at 4 x 512^2 (net 512^2, N = 1025) and
-        # 1080p (384 x 672, N = 1009); k at 4 x 512^2 (768^2, N = 2305,
-        # the inline per-block bias) and 1080p (448 x 768, N = 1345); the
-        # f32 call of phase 5 at 384 x 512 (N = 769)
-        ("bf16_b8_h16_n1025_shared", bf16, 8, 16, 1025, 1),
-        ("bf16_b2_h16_n1009_shared", bf16, 2, 16, 1009, 1),
-        ("bf16_b8_h16_n2305_shared", bf16, 8, 16, 2305, 1),
-        ("bf16_b2_h16_n1345_shared", bf16, 2, 16, 1345, 1),
-        ("f32_b2_h16_n769_shared", f32, 2, 16, 769, 1),
-    ]
     worst = 0.0
     main = None
-    for name, dt, b, h, n, bb in cases:
+    for name, dts, b, h, n, bb, *rest in K1_CASES:
+        nk = rest[0] if rest else n
+        dt = getattr(torch, dts)
+
         def mk(*shape, scale=1.0):
             return (torch.randn(*shape, generator=g) * scale).to("cuda", dt)
         q = mk(b, h, n, 64, scale=K1_Q_SCALE)
-        k, v = mk(b, h, n, 64), mk(b, h, n, 64, scale=K1_V_SCALE)
-        bias = fa.pad_bias_rows(mk(bb, h, n, n)) if bb else None
+        k, v = mk(b, h, nk, 64), mk(b, h, nk, 64, scale=K1_V_SCALE)
+        bias = fa.pad_bias_rows(mk(bb, h, n, nk)) if bb else None
         got = fa.flash_attention_cuda(q, k, v, bias)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, bias)
         err = (got.float() - want.float()).abs().max().item()
-        dts = str(dt).split(".")[-1]
         tol = K1_BOUND[dts]
         faults = k1_fault_errors(q, k, v, bias, want)
         del want
         torch.cuda.empty_cache()
         def k1_call():
             return fa.flash_attention_cuda(q, k, v, bias)
-        ms = cuda_ms(k1_call, 20)
-        dev_ms = device_ms(k1_call, 10)
+        ms = cuda_ms(k1_call, 10)
+        dev_ms = device_ms(k1_call, 5)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
                            3)
         # SDPA on the same tensors: the efficient backend takes the
         # padded-row mask; the flash backend takes no mask and no f32
         library, library_dev = {}, {}
         backends = [("efficient", SDPBackend.EFFICIENT_ATTENTION)]
-        if bias is None and dt == bf16:
+        if bias is None and dt == torch.bfloat16:
             backends.append(("flash", SDPBackend.FLASH_ATTENTION))
         for lib, backend in backends:
             def sdpa_call():
                 with sdpa_kernel(backend):
                     return F.scaled_dot_product_attention(q, k, v,
                                                           attn_mask=bias)
-            library[lib] = cuda_ms(sdpa_call, 20)
-            library_dev[lib] = device_ms(sdpa_call, 10)
-        bound_ms, basis = k1_bound(b, h, n, n, bb, dts)
+            library[lib] = cuda_ms(sdpa_call, 10)
+            library_dev[lib] = device_ms(sdpa_call, 5)
+        bound_ms, basis = k1_bound(b, h, n, nk, bb, dts)
         log("2-k1", case=name, max_abs_err=f"{err:.3e}", tol=tol,
             ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
             plain_ms=f"{plain_ms:.4f}",
@@ -487,9 +543,10 @@ def _test_images(seed: int, shapes):
     return out
 
 
-def profile_paths(cache, inp, paths):
+def profile_paths(cache, inp, paths, ops=None):
     """torch.profiler over one warm funnel run of each path (label,
-    images): device time by kernel, and K1's and K2's share of it."""
+    images; the funnel's ``ops``): device time by kernel, and K1's and
+    K2's share of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -499,7 +556,7 @@ def profile_paths(cache, inp, paths):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in core_generation_funnel(None, imgs, None, None, inp,
+            for _ in core_generation_funnel(None, imgs, None, None, inp, ops,
                                             predictor_cache=cache):
                 pass
             torch.cuda.synchronize()
@@ -919,6 +976,19 @@ def phase_warp_fills(k2_ms: float):
                      for f, t in timed.items()}, k2_ms=f"{k2_ms:.4f}")
 
 
+def empty_bundle(mt):
+    """build_model(mt)'s bundle with its module built on the meta device
+    and then allocated on the host, uninitialised (every parameter and
+    buffer is in its state dict): a predictor given a state dict fills it,
+    without the default init of a full-width model first."""
+    import torch
+    from depthmap_tpu_torch.models.build import build_model
+    with torch.device("meta"):
+        bundle = build_model(mt)
+    bundle.module.to_empty(device="cpu")
+    return bundle
+
+
 def phase_numerics():
     """Whole-path f32 numerics, card (kernels, TF32 off) against CPU (plain
     versions): dpt_beit_large_512 at 512^2 (K1 with bias, 24 launches),
@@ -945,7 +1015,7 @@ def phase_numerics():
         sd = init_random_(build_model(mt).module, seed=4).state_dict()
         img = _test_images(5, [(h, w)])[0].astype(np.float32) / 255.0
         gpu = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
-                             device="cuda")
+                             device="cuda", bundle=empty_bundle(mt))
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
         before = fa.flash_attention_cuda.launches
@@ -955,7 +1025,7 @@ def phase_numerics():
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cpu = DepthPredictor(mt, state_dict=sd, compute_dtype=torch.float32,
-                             device="cpu")
+                             device="cpu", bundle=empty_bundle(mt))
         on_cpu = cpu.predict(img, net_w, net_h)
         cpu_s = time.perf_counter() - t0
         rng_ = float(on_cpu.max() - on_cpu.min())
@@ -994,7 +1064,7 @@ def phase_numerics_selective():
     for run, dev, dtype in (("f32", "cuda", torch.float32),
                             ("card", "cuda", None), ("cpu", "cpu", None)):
         pred = DepthPredictor(8, state_dict=sd, device=dev,
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, bundle=empty_bundle(8))
         want = (torch.float32, torch.float32 if dtype else torch.bfloat16)
         if (pred.compute_dtype, pred.core_dtype) != want:
             raise AssertionError(
@@ -1033,23 +1103,315 @@ def phase_numerics_selective():
                              f"{drift['cpu']}")
 
 
+def _textured(seed: int, h: int, w: int):
+    """A float RGB image in [0, 1] with edges everywhere (noise over smooth
+    shading): Boost's R_x search keeps climbing on it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = 0.5 + 0.25 * np.stack([np.sin(9 * xx + c) * np.cos(7 * yy - c)
+                                 for c in (0.0, 1.0, 2.0)], -1)
+    img += 0.15 * rng.normal(size=img.shape)
+    return np.clip(img * 255, 0, 255).astype(np.uint8)
+
+
+def drive_boost(phase, name, images, profile=False):
+    """One Boost path through PredictorCache and core_generation_funnel
+    (boost_rmax 1600): a warm run on the first image, then a timed run of
+    each image with every kernel count set to 0 just before it; K1 must
+    run 24 times a forward of a BEiT model (two whole-image forwards, two a
+    chunk of patches), never for LeReS.  Returns the timed runs' K1
+    launches and the last image's R_x."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.pipeline.core import (PredictorCache,
+                                                  core_generation_funnel)
+    inp = GenerationOptions(compute_device="GPU", model_type=name,
+                            boost=True)
+    ops = {"boost_rmax": 1600}
+    cache = PredictorCache()
+    list(core_generation_funnel(None, images[:1], None, None, inp, ops,
+                                cache))
+    launches = 0
+    for image in images:
+        h, w = image.shape[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = list(core_generation_funnel(None, [image], None, None, inp,
+                                          ops, cache))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = fa.flash_attention_cuda.launches
+        engine = cache._boost
+        run = engine.last_run
+        blocks = backbone_shape(engine.predictor.bundle.module)[0]
+        want = blocks * (2 + 2 * run["chunks"])
+        d = out[0][2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(phase, model=name, size=f"{h}x{w}", rf=engine.rf,
+            R_x=run["whole_size"], patches=run["patches"],
+            chunks=run["chunks"], s_per_image=f"{seconds:.3f}",
+            k1_launches=k1, k1_expected=want,
+            max_memory_allocated_GiB=f"{peak:.3f}",
+            dtype=str(engine.predictor.compute_dtype))
+        if [t for _, t, _ in out] != ["depth"] or d.dtype != np.uint16 or \
+                d.shape != (h, w) or int(d.max()) - int(d.min()) <= 0:
+            raise AssertionError(f"{phase} {name}: outputs {out}")
+        if k1 != want:
+            raise AssertionError(f"{phase} {name}: K1 launched {k1} times, "
+                                 f"expected {want}")
+        launches += k1
+        if profile:
+            profile_paths(cache, inp, [(f"{phase}_{name}_{h}x{w}", [image])],
+                          ops)
+    cache.release()
+    torch.cuda.empty_cache()
+    return launches, run["whole_size"]
+
+
+def phase_boost(profile: bool = False):
+    """Boost at r_max 1600 on res101 (1080p and 4:3) and on
+    dpt_beit_large_512 (a textured 4:3 image: R_x 1536, N = 6913); then the
+    device chain and pix2pix, card against CPU."""
+    os.environ["DEPTHMAP_ALLOW_RANDOM_PIX2PIX"] = "1"
+    drive_boost("13-boost", "res101",
+                [_test_images(13, [(1080, 1920)])[0],
+                 _test_images(14, [(768, 1024)])[0]], profile)
+    k1, whole = drive_boost("13-boost", "dpt_beit_large_512",
+                            [_textured(15, 768, 1024)], profile)
+    if whole != 1536:
+        raise AssertionError(f"BEiT's Boost ran its whole image at R_x "
+                             f"{whole}, not 1536")
+    phase_boost_numerics()
+    return k1
+
+
+def phase_boost_numerics():
+    """Boost's device chain at 1080p with P = 1024 (crops of the image and
+    of the frame, the fit, the blend with the 3000^2 mask) and the
+    full-width pix2pix (1024^2, batch 1, f32), card against the port's
+    CPU."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.models.pix2pix import build_pix2pix
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline import boost as B
+    from depthmap_tpu_torch.pipeline.depth import set_fp32_precision
+    set_fp32_precision(torch.device("cuda"))
+    rng = np.random.default_rng(16)
+    img = _textured(16, 1080, 1920).astype(np.float32) / 255.0
+    rects = np.asarray(B.select_patches(img, 448, 1600, 1.0, 1600)[:4] +
+                       [(0, 0, 0, 0)], np.int32)
+    frame = rng.random((1080, 1920)).astype(np.float32)
+    merged = rng.random((len(rects), 1024, 1024)).astype(np.float32)
+    errs, ms = {}, {}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in
+             (("img", img), ("frame", frame), ("merged", merged))}
+        mask = B.generate_mask(B.MASK_SIZE, dev)
+        crops = B.crop_resize_batch(t["img"], rects, 1024, 1024)
+        base = B.crop_resize_batch(t["frame"], rects, 1024, 1024)
+        fit = B.fit_to_base(t["merged"], base)
+        blend = B.blend_patches(t["frame"], fit, rects, mask)
+        out[dev] = {"crops": crops, "base": base, "fit": fit,
+                    "blend": blend}
+        if dev == "cuda":
+            ms["crop_4x1024"] = cuda_ms(lambda: B.crop_resize_batch(
+                t["img"], rects, 1024, 1024), 3)
+            ms["blend"] = cuda_ms(lambda: B.blend_patches(
+                t["frame"], fit, rects, mask), 3)
+    for k in out["cpu"]:
+        errs[k] = float((out["cuda"][k].cpu() - out["cpu"][k]).abs().max())
+    net = init_random_(build_pix2pix(), seed=6)
+    a, b = (torch.from_numpy(rng.random((1, 1024, 1024)).astype(np.float32))
+            for _ in range(2))
+    with torch.no_grad():
+        want = net(a, b)
+        card = net.cuda()
+        got = card(a.cuda(), b.cuda())
+        torch.cuda.synchronize()
+        ms["pix2pix"] = cuda_ms(lambda: card(a.cuda(), b.cuda()), 3)
+    span = float(want.max() - want.min())
+    errs["pix2pix"] = float((got.cpu() - want).abs().max())
+    log("13-boost-numerics", rects=len(rects) - 1,
+        **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()},
+        chain_tol=BOOST_CHAIN_TOL, pix2pix_range=f"{span:.4f}",
+        pix2pix_tol=f"{PATH_RTOL} x range",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()})
+    bad = [k for k, v in errs.items() if k != "pix2pix"
+           and not v <= BOOST_CHAIN_TOL]
+    if bad or not (span > 0 and errs["pix2pix"] <= PATH_RTOL * span):
+        raise AssertionError(f"Boost card vs CPU: {errs}")
+    del card, net
+    torch.cuda.empty_cache()
+
+
+def drive_marigold(phase, image, state_dict, profile=False):
+    """Marigold through the funnel at res 768, ensemble 5, 12 steps, in
+    the dtype DEPTHMAP_MARIGOLD_DTYPE names: a warm run, then a timed one
+    with the K1 count set to 0 just before it: 32 launches a UNet forward,
+    384 an image."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.pipeline.core import (PredictorCache,
+                                                  core_generation_funnel)
+
+    bundle = empty_bundle(10)
+
+    class Cache(PredictorCache):       # the same random weights each dtype
+        def get(self, model_type, tiling_mode=False, **kw):
+            return super().get(model_type, tiling_mode, bundle=bundle,
+                               state_dict=state_dict, **kw)
+    inp = GenerationOptions(compute_device="GPU", model_type=10,
+                            net_width=768, net_height=768)
+    ops = {"marigold_ensembles": 5, "marigold_steps": 12}
+    cache = Cache()
+    h, w = image.shape[:2]
+    t0 = time.perf_counter()
+    list(core_generation_funnel(None, [image], None, None, inp, ops, cache))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pred = cache._predictor
+    # the dtype the UNet's first self-attention computes in: f32 in both
+    # modes (flax's promotion, which the port's layers follow)
+    attn_dtypes = set()
+    hook = pred.bundle.module.unet.down_blocks[0].attentions[0] \
+        .transformer_blocks[0].attn1.register_forward_hook(
+            lambda m, i, o: attn_dtypes.add(str(o.dtype)))
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = list(core_generation_funnel(None, [image], None, None, inp, ops,
+                                      cache))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = fa.flash_attention_cuda.launches
+    hook.remove()
+    d = out[0][2]
+    log(phase, size=f"{h}x{w}", res=768, ensemble=5, steps=12,
+        dtype=str(pred.compute_dtype), attention_dtype=sorted(attn_dtypes),
+        s_warm=f"{warm_s:.3f}", s_per_image=f"{seconds:.3f}",
+        k1_launches=k1,
+        max_memory_allocated_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    if d.dtype != np.uint16 or d.shape != (h, w) or \
+            int(d.max()) - int(d.min()) <= 0:
+        raise AssertionError(f"{phase}: depth {d.dtype} {d.shape}")
+    if attn_dtypes != {"torch.float32"}:
+        raise AssertionError(f"{phase}: the UNet's attention ran in "
+                             f"{attn_dtypes}, not in f32 as the JAX "
+                             "package's promotion runs it")
+    if k1 != 32 * 12:
+        raise AssertionError(f"{phase}: K1 launched {k1} times, expected "
+                             "384 (32 a UNet forward, 12 steps)")
+    if profile:
+        profile_paths(cache, inp, [(f"{phase}_{pred.compute_dtype}",
+                                    [image])], ops)
+    cache.release()
+    del pred, cache, Cache, bundle
+    gc.collect()    # the class above sits in a cycle (super's cell)
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_marigold(profile: bool = False):
+    """Marigold v1 at full width (random weights from a seed) on a 4:3
+    image, f32 then bf16; then card against CPU at processing_res 64."""
+    import torch
+    from depthmap_tpu_torch.models.marigold.pipeline import build_marigold
+    from depthmap_tpu_torch.models.weights import init_random_
+    t0 = time.perf_counter()
+    sd = init_random_(build_marigold(), seed=4).state_dict()
+    log("14-marigold", weights=len(sd),
+        params_M=f"{sum(t.numel() for t in sd.values()) / 1e6:.1f}",
+        init_s=f"{time.perf_counter() - t0:.2f}")
+    image = _test_images(17, [(768, 1024)])[0]
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        os.environ["DEPTHMAP_MARIGOLD_DTYPE"] = dtype
+        launches[dtype] = drive_marigold("14-marigold", image, sd, profile)
+    os.environ.pop("DEPTHMAP_MARIGOLD_DTYPE")
+    phase_marigold_numerics(sd)
+    return launches
+
+
+def phase_marigold_numerics(sd):
+    """The full-width nets at processing_res 64 (a 48 x 64 input, latent 6
+    x 8), ensemble 2, 2 steps, the same noise, f32: the members before the
+    ensemble, card (K1) against CPU (the plain version), to PATH_RTOL of
+    the CPU map's range."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.pipeline.depth import set_fp32_precision
+    set_fp32_precision(torch.device("cuda"))
+    img = _test_images(18, [(48, 64)])[0].astype(np.float32) / 255.0
+    rgb = torch.from_numpy(img).permute(2, 0, 1)[None].expand(2, -1, -1, -1)
+    noise = torch.randn((2, 4, 6, 8),
+                        generator=torch.Generator().manual_seed(18))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = empty_bundle(10).module
+        pipe.load_state_dict(sd)
+        pipe = pipe.to(dev).eval()
+        before = fa.flash_attention_cuda.launches
+        t0 = time.perf_counter()
+        out[dev] = pipe.single_infer(rgb.to(dev), 2, noise).cpu()
+        out[dev + "_s"] = time.perf_counter() - t0
+        out[dev + "_k1"] = fa.flash_attention_cuda.launches - before
+        del pipe
+        torch.cuda.empty_cache()
+    span = float(out["cpu"].max() - out["cpu"].min())
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    log("14-marigold-numerics", res=64, ensemble=2, steps=2,
+        k1_launches=out["cuda_k1"], cpu_range=f"{span:.4e}",
+        max_abs_diff=f"{err:.4e}", bound=f"{PATH_RTOL} x range",
+        cpu_seconds=f"{out['cpu_s']:.1f}")
+    if (out["cuda_k1"], out["cpu_k1"]) != (64, 0):
+        raise AssertionError(f"Marigold numerics: K1 launched "
+                             f"{out['cuda_k1']} / {out['cpu_k1']} times, "
+                             "expected 64 on the card, 0 on the CPU")
+    if not (span > 0 and err <= PATH_RTOL * span):
+        raise AssertionError(f"Marigold card vs CPU: {err} > {PATH_RTOL} x "
+                             f"{span}")
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
-    smi = phase_environment()
-    phase_build()
-    k1_err, k1 = phase_k1()
-    k2_err, k2 = phase_k2()
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+    smi = timed("0", phase_environment)
+    timed("1", phase_build)
+    k1_err, k1 = timed("2", phase_k1)
+    k2_err, k2 = timed("3", phase_k2)
     k1_by_path = {}
-    k1_by_path["dpt_beit_large_512"], k2_launches = phase_main_path(profile)
-    phase_numerics()
-    k1_by_path["default_options_da_v2_base"], _ = \
-        phase_default_options(profile)
-    k1_by_path["long_n_da_v2_large"], _ = phase_long_n(profile)
-    phase_warp_fills(k2["ms"])
-    k1_by_path["dpt_large_384"] = phase_dpt_large(profile)
-    k1_by_path.update(phase_zoo(profile))
-    k1_by_path.update(phase_metric_zoo(profile))
-    phase_normalmap()
+    k1_by_path["dpt_beit_large_512"], k2_launches = timed(
+        "4", phase_main_path, profile)
+    timed("5", phase_numerics)
+    k1_by_path["default_options_da_v2_base"], _ = timed(
+        "6", phase_default_options, profile)
+    k1_by_path["long_n_da_v2_large"], _ = timed("7", phase_long_n, profile)
+    timed("8", phase_warp_fills, k2["ms"])
+    k1_by_path["dpt_large_384"] = timed("9", phase_dpt_large, profile)
+    k1_by_path.update(timed("10", phase_zoo, profile))
+    k1_by_path.update(timed("12", phase_metric_zoo, profile))
+    timed("11", phase_normalmap)
+    k1_by_path["boost_dpt_beit_large_512"] = timed("13", phase_boost,
+                                                   profile)
+    k1_by_path.update({f"marigold_{dt}": n for dt, n in timed(
+        "14", phase_marigold, profile).items()})
+    log("phases", seconds=seconds)
     import torch
 
     def row(name, source, replaces, launches, err, t, **extra):

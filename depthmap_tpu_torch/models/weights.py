@@ -154,6 +154,9 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ViT-L's a ``pos_embed``, BEiT's neither), midas_v21_small (an encoder
     ``stem``) and midas_v21."""
     p = variables["params"]
+    if "netG" in p:
+        raise ValueError("a pix2pix tree: state_dict_from_jax_pix2pix "
+                         "carries it")
     if "model" in p:
         return {f"model.{k}": v
                 for k, v in _state_dict_from_jax_zoe(p["model"]).items()}
@@ -479,6 +482,219 @@ def state_dict_from_jax_da(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def state_dict_from_jax_pix2pix(variables: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_pix2pix``: the JAX Pix2Pix4Depth tree
+    ({params, batch_stats} of ``netG``) -> the keys of latest_net_G.pth,
+    the nested ``model.model.[...]`` of the recursive generator."""
+    p = variables["params"]["netG"]
+    st = variables["batch_stats"]["netG"]
+    num_downs = sum(1 for k in p if k.startswith("down") and
+                    k.endswith("_conv"))
+    sd: Dict[str, torch.Tensor] = {}
+    prefix = "model.model"
+    for i in range(num_downs):
+        outermost, innermost = i == 0, i == num_downs - 1
+        down = f"{prefix}.{0 if outermost else 1}.weight"
+        sd[down] = _conv(p[f"down{i}_conv"]["kernel"])
+        if not (outermost or innermost):
+            _put_bn(sd, f"{prefix}.2", p[f"down{i}_bn"]["bn"],
+                    st[f"down{i}_bn"]["bn"])
+        up = 5 if not (outermost or innermost) else 3
+        sd[f"{prefix}.{up}.weight"] = _convt(p[f"up{i}_conv"]["kernel"])
+        if outermost:
+            sd[f"{prefix}.{up}.bias"] = _t(p[f"up{i}_conv"]["bias"])
+        else:
+            _put_bn(sd, f"{prefix}.{up + 1}", p[f"up{i}_bn"]["bn"],
+                    st[f"up{i}_bn"]["bn"])
+        if not innermost:
+            prefix = f"{prefix}.{1 if outermost else 3}.model"
+    return sd
+
+
+def load_pix2pix(path: str) -> Dict[str, torch.Tensor]:
+    """latest_net_G.pth as the merge net's state dict (``module.``
+    stripped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
+# -- Marigold: diffusers' UNet2DConditionModel and AutoencoderKL ----------
+
+def _put_resnet(sd, name, e):
+    for part in ("norm1", "norm2"):
+        _put_ln(sd, f"{name}.{part}", e[part])
+    for part in ("conv1", "conv2"):
+        _put_conv(sd, f"{name}.{part}", e[part])
+    if "shortcut" in e:
+        _put_conv(sd, f"{name}.conv_shortcut", e["shortcut"])
+    if "time_emb_proj" in e:
+        _put_linear(sd, f"{name}.time_emb_proj", e["time_emb_proj"])
+
+
+def _put_transformer(sd, name, e):
+    _put_ln(sd, f"{name}.norm", e["norm"])
+    _put_linear(sd, f"{name}.proj_in", e["proj_in"])
+    _put_linear(sd, f"{name}.proj_out", e["proj_out"])
+    b, tb = e["block0"], f"{name}.transformer_blocks.0"
+    for part in ("norm1", "norm2", "norm3"):
+        _put_ln(sd, f"{tb}.{part}", b[part])
+    for att in ("attn1", "attn2"):
+        for lin in ("to_q", "to_k", "to_v"):
+            _put_linear(sd, f"{tb}.{att}.{lin}", b[att][lin])
+        _put_linear(sd, f"{tb}.{att}.to_out.0", b[att]["to_out"])
+    _put_linear(sd, f"{tb}.ff.net.0.proj", b["ff_geglu"]["proj"])
+    _put_linear(sd, f"{tb}.ff.net.2", b["ff_out"])
+
+
+def state_dict_from_jax_unet(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_unet``: the JAX MarigoldUNet tree ->
+    diffusers' UNet2DConditionModel keys."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _put_conv(sd, "conv_in", p["conv_in"])
+    _put_linear(sd, "time_embedding.linear_1", p["time_fc1"])
+    _put_linear(sd, "time_embedding.linear_2", p["time_fc2"])
+    _put_ln(sd, "conv_norm_out", p["norm_out"])
+    _put_conv(sd, "conv_out", p["conv_out"])
+    levels = sum(1 for k in p if k.startswith("down") and k.endswith("_res0"))
+    for i in range(levels):
+        for j in range(2):
+            t = f"down_blocks.{i}"
+            _put_resnet(sd, f"{t}.resnets.{j}", p[f"down{i}_res{j}"])
+            if f"down{i}_attn{j}" in p:
+                _put_transformer(sd, f"{t}.attentions.{j}",
+                                 p[f"down{i}_attn{j}"])
+        if f"down{i}_downsample" in p:
+            _put_conv(sd, f"down_blocks.{i}.downsamplers.0.conv",
+                      p[f"down{i}_downsample"])
+    for j in range(2):
+        _put_resnet(sd, f"mid_block.resnets.{j}", p[f"mid_res{j}"])
+    _put_transformer(sd, "mid_block.attentions.0", p["mid_attn"])
+    for k in range(levels):          # diffusers up_blocks.k == up{L-1-k}
+        i, t = levels - 1 - k, f"up_blocks.{k}"
+        for j in range(3):
+            _put_resnet(sd, f"{t}.resnets.{j}", p[f"up{i}_res{j}"])
+            if f"up{i}_attn{j}" in p:
+                _put_transformer(sd, f"{t}.attentions.{j}",
+                                 p[f"up{i}_attn{j}"])
+        if f"up{i}_upsample" in p:
+            _put_conv(sd, f"{t}.upsamplers.0.conv", p[f"up{i}_upsample"])
+    return sd
+
+
+def _put_vae_attn(sd, name, e):
+    _put_ln(sd, f"{name}.group_norm", e["norm"])
+    for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                         ("proj_out", "to_out.0")):
+        _put_linear(sd, f"{name}.{theirs}", e[ours])
+
+
+def state_dict_from_jax_vae(encoder: Mapping, decoder: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_vae``: the JAX Encoder and Decoder trees ->
+    diffusers' AutoencoderKL keys."""
+    e, d = encoder["params"], decoder["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for net, p in (("encoder", e), ("decoder", d)):
+        _put_conv(sd, f"{net}.conv_in", p["conv_in"])
+        _put_ln(sd, f"{net}.conv_norm_out", p["norm_out"])
+        _put_conv(sd, f"{net}.conv_out", p["conv_out"])
+        for j in (1, 2):
+            _put_resnet(sd, f"{net}.mid_block.resnets.{j - 1}",
+                        p[f"mid_block{j}"])
+        _put_vae_attn(sd, f"{net}.mid_block.attentions.0", p["mid_attn"])
+    _put_conv(sd, "quant_conv", e["quant_conv"])
+    _put_conv(sd, "post_quant_conv", d["post_quant_conv"])
+    levels = sum(1 for k in e if k.startswith("down") and
+                 k.endswith("_block0"))
+    for i in range(levels):
+        t = f"encoder.down_blocks.{i}"
+        for j in range(2):
+            _put_resnet(sd, f"{t}.resnets.{j}", e[f"down{i}_block{j}"])
+        if f"down{i}_downsample" in e:
+            _put_conv(sd, f"{t}.downsamplers.0.conv",
+                      e[f"down{i}_downsample"])
+    for k in range(levels):
+        i, t = levels - 1 - k, f"decoder.up_blocks.{k}"
+        for j in range(3):
+            _put_resnet(sd, f"{t}.resnets.{j}", d[f"up{i}_block{j}"])
+        if f"up{i}_upsample" in d:
+            _put_conv(sd, f"{t}.upsamplers.0.conv", d[f"up{i}_upsample"])
+    return sd
+
+
+def state_dict_from_jax_marigold(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX MarigoldPipeline's variables ({encoder, decoder, unet,
+    empty_text_embed}) -> the port's MarigoldPipeline state dict."""
+    sd = {f"vae.{k}": v for k, v in state_dict_from_jax_vae(
+        variables["encoder"], variables["decoder"]).items()}
+    sd.update({f"unet.{k}": v for k, v in
+               state_dict_from_jax_unet(variables["unet"]).items()})
+    sd["empty_text_embed"] = _t(np.asarray(variables["empty_text_embed"],
+                                           np.float32))
+    return sd
+
+
+# the VAE attention's older diffusers names, and its 1x1-conv weights
+_OLD_VAE_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v",
+                 "proj_attn": "to_out.0"}
+
+
+def _vae_new_names(sd: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in sd.items():
+        head, _, leaf = k.rpartition(".")
+        parent, _, last = head.rpartition(".")
+        if ".attentions." in k and last in _OLD_VAE_ATTN:
+            k = f"{parent}.{_OLD_VAE_ATTN[last]}.{leaf}"
+            if v.dim() == 4:
+                v = v[:, :, 0, 0]
+        out[k] = v
+    return out
+
+
+def empty_text_embed(model_dir: str) -> np.ndarray:
+    """(1, 77, 1024) empty-prompt embedding from the tree's CLIP text
+    encoder (transformers' torch CLIPTextModel)."""
+    from transformers import CLIPTextModel, CLIPTokenizer
+    tok = CLIPTokenizer.from_pretrained(os.path.join(model_dir, "tokenizer"))
+    te = CLIPTextModel.from_pretrained(os.path.join(model_dir,
+                                                    "text_encoder")).eval()
+    inputs = tok("", padding="max_length", max_length=77,
+                 return_tensors="pt")
+    with torch.no_grad():
+        return te(**inputs).last_hidden_state.numpy()
+
+
+def load_marigold_checkpoint(model_dir: str) -> Dict[str, torch.Tensor]:
+    """A Marigold diffusers tree (``vae/``, ``unet/``, ``text_encoder/``,
+    ``tokenizer/``) -> the port's MarigoldPipeline state dict.  The empty
+    prompt's embedding is computed where the text encoder loads, else it
+    is zeros, as in the JAX package."""
+    def load_bin(sub):
+        for fn in ("diffusion_pytorch_model.bin", "pytorch_model.bin"):
+            path = os.path.join(model_dir, sub, fn)
+            if os.path.exists(path):
+                return torch.load(path, map_location="cpu",
+                                  weights_only=True)
+        raise FileNotFoundError(f"no torch weights under {model_dir}/{sub}")
+
+    unet = load_bin("unet")
+    sd = {f"vae.{k}": v for k, v in _vae_new_names(load_bin("vae")).items()}
+    sd.update({f"unet.{k}": v for k, v in unet.items()})
+    try:
+        embed = empty_text_embed(model_dir)
+    except Exception:   # the context's width: SD2's 1024
+        width = unet["down_blocks.0.attentions.0.transformer_blocks.0."
+                     "attn2.to_k.weight"].shape[1]
+        embed = np.zeros((1, 77, width), np.float32)
+    sd["empty_text_embed"] = _t(np.asarray(embed, np.float32))
+    return sd
+
+
 def load_checkpoint(model: nn.Module, path: str) -> None:
     """Load a reference checkpoint with strict=True.  ZoeDepth's state
     dict is under ``model`` and LeReS's under ``depth_model``; the port's
@@ -509,7 +725,8 @@ def find_checkpoint(model_type: int, weights_dir: str) -> Optional[str]:
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init (nothing is downloaded): linear/conv weights
-    normal with std 1/sqrt(fan_in) and zero biases, LayerNorm, GroupNorm,
+    normal with std 1/sqrt(fan_in) (a transposed conv's fan-in: the taps
+    that reach one output) and zero biases, LayerNorm, GroupNorm,
     BatchNorm (running mean 0, var 1) and LayerScale at 1, cls token and
     rel-pos tables normal(0, 0.02), the NK router's packed in-projection
     as a linear weight.  The numbers differ from the JAX package's init;
@@ -521,7 +738,10 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight
             if isinstance(mod, nn.ConvTranspose2d):
-                fan_in = w.shape[0]
+                # the taps that reach one output: in x (k / stride)^2 (in
+                # alone for the DPT heads' k = stride)
+                fan_in = w.shape[0] * (w.shape[2] // mod.stride[0]) * (
+                    w.shape[3] // mod.stride[1])
             else:
                 fan_in = w[0].numel()
             w.copy_(torch.randn(w.shape, generator=g) / math.sqrt(fan_in))

@@ -5,14 +5,20 @@ Port of ``depthmap_tpu/pipeline/core.py``: a generator yielding
 the JAX funnel yields PIL images: 'depth' is (H, W) uint16, 'concat_depth'
 and the stereo modes are uint8 RGB.
 
-Ported models: LeReS (type 0), the MiDaS / DPT zoo (types 1-6), ZoeDepth
-n / k / nk (types 7-9) and Depth Anything v1 / v2 (the default options'
-model, Depth Anything v2 Base); Marigold (type 10) raises.  Ported outputs:
-depth (plain, inverted, concatenated), depth_prediction, stereo with all
-five fills, the normal map ((H, W, 3) uint8, computed on the funnel's
-device), the heatmap ((H, W, 4) uint8) and the simple mesh (the path of
-the OBJ written).  Boost, background removal and the inpainted mesh raise
-NotImplementedError naming their ROADMAP items.  ``compute_device`` picks
+Every model of the zoo runs: LeReS (type 0), the MiDaS / DPT zoo (types
+1-6), ZoeDepth n / k / nk (types 7-9), Marigold (type 10: its
+``marigold_ensembles`` and ``marigold_steps`` ops, 5 and 12 by default,
+build its predictor) and Depth Anything v1 / v2 (the default options'
+model, Depth Anything v2 Base).  Ported outputs: depth (plain, inverted,
+concatenated), depth_prediction, stereo with all five fills, the normal
+map ((H, W, 3) uint8, computed on the funnel's device), the heatmap ((H,
+W, 4) uint8) and the simple mesh (the path of the OBJ written).  ``boost``
+runs the Boost merge (``pipeline/boost.py``) on any model, up to the
+``boost_rmax`` op (1600 by default); its pix2pix weights come from
+``<weights_dir>/pix2pix/latest_net_G.pth``, and without that file it raises
+FileNotFoundError unless DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1.  Background
+removal and the inpainted mesh raise NotImplementedError naming their
+ROADMAP items.  ``compute_device`` picks
 the device: "GPU" is CUDA (and raises without it), "CPU" is the host.
 A call that passes no ``predictor_cache`` uses the module's
 ``_default_cache``, so the model stays on its device between calls
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from depthmap_tpu_torch.device import resolve_device
+from depthmap_tpu_torch.models.build import is_host_pipeline
 from depthmap_tpu_torch.ops import numerics
 from depthmap_tpu_torch.ops.heatmap import colorize
 from depthmap_tpu_torch.ops.normalmap import create_normalmap
@@ -36,7 +43,6 @@ from depthmap_tpu_torch.pipeline.depth import DepthPredictor
 from depthmap_tpu_torch.registry import resolve_model_type
 
 _NOT_PORTED = {
-    "boost": "Queue 1 item 10 (Boost)",
     "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
     "gen_inpainted_mesh": "Queue 1 item 13 (3D photo)",
 }
@@ -48,22 +54,38 @@ class PredictorCache:
     def __init__(self):
         self._predictor: Optional[DepthPredictor] = None
         self._key: Optional[tuple] = None
+        self._boost = None
 
     def get(self, model_type, tiling_mode: bool = False,
             **kw) -> DepthPredictor:
         mt = resolve_model_type(model_type)
+        if not is_host_pipeline(mt):   # Marigold's knobs shape it alone
+            kw = {k: v for k, v in kw.items()
+                  if not k.startswith("marigold_")}
         key = (mt, tiling_mode, tuple(sorted(kw.items())))
         if self._predictor is None or self._key != key:
-            self._predictor = None   # free the old model first
+            self.release()   # free the old model first
             self._predictor = DepthPredictor(mt, tiling_mode=tiling_mode,
                                              **kw)
             self._key = key
         return self._predictor
 
+    def get_boost(self, model_type, weights_dir: str = "./models", **kw):
+        """The Boost engine around the predictor ``get`` gives, its merge
+        net loaded once (``_load_pix2pix``)."""
+        from depthmap_tpu_torch.pipeline.boost import BoostEngine
+        predictor = self.get(model_type, **kw)
+        if self._boost is None or self._boost.predictor is not predictor:
+            self._boost = BoostEngine(predictor,
+                                      merge_net=_load_pix2pix(weights_dir))
+        return self._boost
+
     def release(self):
-        """Drop the predictor, so its device memory frees."""
+        """Drop the predictor and the Boost engine, so their device memory
+        frees."""
         self._predictor = None
         self._key = None
+        self._boost = None
 
     def unload(self):
         """The frontends' name for ``release``."""
@@ -71,6 +93,29 @@ class PredictorCache:
 
 
 _default_cache = PredictorCache()
+
+
+def _load_pix2pix(weights_dir: str):
+    """The merge net with ``<weights_dir>/pix2pix/latest_net_G.pth`` loaded
+    (strictly); without the file, FileNotFoundError, or with
+    DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 a warning and ``None`` (seeded random
+    weights)."""
+    path = os.path.join(weights_dir, "pix2pix", "latest_net_G.pth")
+    if os.path.exists(path):
+        from depthmap_tpu_torch.models.pix2pix import build_pix2pix
+        from depthmap_tpu_torch.models.weights import load_pix2pix
+        net = build_pix2pix()
+        net.load_state_dict(load_pix2pix(path), strict=True)
+        return net
+    advice = ("pix2pix merge-net weights not found: Boost would merge "
+              "through a random-init net and emit plausible-looking but "
+              f"wrong depth.  Place latest_net_G.pth under {weights_dir}/"
+              "pix2pix/, or set DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 to run "
+              "anyway (tests and benchmarks only).")
+    if os.environ.get("DEPTHMAP_ALLOW_RANDOM_PIX2PIX") == "1":
+        print("warning: " + advice)
+        return None
+    raise FileNotFoundError(advice)
 
 
 def ingest_custom_depthmap(dp, target_w: int, target_h: int) -> np.ndarray:
@@ -153,6 +198,11 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
     predictor_kw: Dict[str, Any] = {"device": dev}
     if ops.get("no_half"):
         predictor_kw["compute_dtype"] = "float32"
+    boost_rmax = int(ops.get("boost_rmax", 1600))
+    if not inputdepthmaps_complete and is_host_pipeline(inp.model_type):
+        predictor_kw["marigold_ensembles"] = int(
+            ops.get("marigold_ensembles", 5))
+        predictor_kw["marigold_steps"] = int(ops.get("marigold_steps", 12))
 
     predictor = None
     if not inputdepthmaps_complete:
@@ -160,10 +210,12 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                               **predictor_kw)
 
     # Batched pre-pass: images that share a shape and need no host-side raw
-    # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH.
-    # A failure raises: it does not fall back to the serial loop.  The
-    # raw map goes to the host for depth_prediction and the simple mesh.
-    raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh
+    # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH
+    # (Marigold's one image at a time).  A failure raises: it does not fall
+    # back to the serial loop.  The raw map goes to the host for
+    # depth_prediction and the simple mesh, and Boost makes it there.
+    raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh or \
+        inp.boost
     fused: Dict[int, np.ndarray] = {}
     rgb_cache: Dict[int, np.ndarray] = {}
     if predictor is not None and not raw_to_host and len(inputimages) > 1:
@@ -215,7 +267,14 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                     clip_far=inp.clipdepth_far,
                     clip_near=inp.clipdepth_near)
             else:
-                raw = depthi = predictor.predict(img01, net_w, net_h)
+                if inp.boost:
+                    raw = cache.get_boost(
+                        inp.model_type, tiling_mode=inp.tiling_mode,
+                        **predictor_kw).estimate(
+                            img01, whole_size_threshold=boost_rmax)
+                else:
+                    raw = predictor.predict(img01, net_w, net_h)
+                depthi = raw
                 invert = predictor.raw_prediction_invert
                 if inp.do_output_depth_prediction and \
                         abs(raw.max() - raw.min()) > np.finfo("float").eps:

@@ -1,7 +1,8 @@
 """Depth prediction engine (torch).
 
 Port of ``depthmap_tpu/pipeline/depth.py``'s DepthPredictor for every
-ported model (LeReS, the MiDaS / DPT zoo, ZoeDepth, Depth Anything):
+model of the zoo (LeReS, the MiDaS / DPT zoo, ZoeDepth, Marigold, Depth
+Anything):
 preprocessing, the forward and the upsample back to the input size run on
 the predictor's device; ``predict_finalized*`` also finalize to uint16
 there, so only the uint16 map goes to the host.  ZoeDepth resizes and
@@ -9,7 +10,11 @@ normalizes inside its module and returns the map at the input size; its
 relative-depth core runs in ``core_dtype``, its metric head in f32.  What
 a backbone computes per grid from its parameters alone (BEiT's
 relative-position biases, DINOv2's resized position embeddings) is
-computed once per net input size and kept.
+computed once per net input size and kept.  A host-pipeline bundle
+(Marigold) runs its pipeline per image (``_pipeline_raw``: the diffusion
+on the device, its resizes and ensemble alignment on the host) in the
+pipeline's own dtype; a batch runs serially.  ``forward_net`` is the forward
+on an input already at net size that Boost calls.
 
 Device: "cuda" (or a cuda:N) needs CUDA and raises without it; "cpu" runs
 everything on the host, attention through K1's plain version.
@@ -89,28 +94,38 @@ class DepthPredictor:
     def __init__(self, model_type, state_dict: Optional[Dict] = None,
                  weights_dir: str = "./models", seed: int = 0,
                  compute_dtype=None, tiling_mode: bool = False,
-                 device="cuda", bundle: Optional[ModelBundle] = None):
+                 device="cuda", bundle: Optional[ModelBundle] = None,
+                 marigold_ensembles: int = 5, marigold_steps: int = 12):
         self.device = resolve_device(device)
         set_fp32_precision(self.device)
         self.model_type = resolve_model_type(model_type)
         self.spec = MODELS[self.model_type]
         self.tiling_mode = tiling_mode
+        self.marigold_ensembles = marigold_ensembles
+        self.marigold_steps = marigold_steps
         self.bundle = bundle if bundle is not None else \
             build_model(self.model_type)
-        self.compute_dtype, self.core_dtype = precision(
-            self.model_type, compute_dtype, self.bundle.selective_core)
         module = self.bundle.module
+        pipeline = self.bundle.host_pipeline
+        if pipeline:   # the pipeline's own dtype, as in the JAX package
+            self.compute_dtype = self.core_dtype = module.pipeline_dtype()
+        else:
+            self.compute_dtype, self.core_dtype = precision(
+                self.model_type, compute_dtype, self.bundle.selective_core)
         from depthmap_tpu_torch.models import weights
         if state_dict is not None:
             module.load_state_dict(state_dict, strict=True)
+        elif pipeline:
+            module.load_weights(weights_dir, seed)
         else:
             path = weights.find_checkpoint(self.model_type, weights_dir)
             if path is not None:
                 weights.load_checkpoint(module, path)
             else:
                 weights.init_random_(module, seed)
-        from depthmap_tpu_torch.models.layers import set_tiling_mode
-        set_tiling_mode(module, tiling_mode)
+        if not pipeline:   # as the JAX Marigold's, a pipeline's never tile
+            from depthmap_tpu_torch.models.layers import set_tiling_mode
+            set_tiling_mode(module, tiling_mode)
         module.to(device=self.device, dtype=self.compute_dtype)
         module.head_to_f32()
         if self.core_dtype != self.compute_dtype:
@@ -131,36 +146,63 @@ class DepthPredictor:
         return self._grid_inputs[input_hw]
 
     @torch.no_grad()
+    def forward_net(self, x: torch.Tensor, out_hw=None,
+                    net_size: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+        """The JAX predictor's ``_apply``: x is the NCHW net input on the
+        device (already resized and normalized) -> (N, out_h, out_w) f32,
+        upsampled as the bundle says.  A ``prep_in_model`` module
+        (ZoeDepth) takes the NCHW image in [0, 1] instead, channels in its
+        order, resizes it to fit ``net_size`` (h, w) itself and returns the
+        input's size."""
+        module = self.bundle.module
+        x = x.to(self.compute_dtype)
+        if self.bundle.prep_in_model:
+            h, w = x.shape[2:]
+            input_hw = module.net_input_size(h, w, net_size, module.img_size)
+            pred = module(x, net_size=net_size, **self.grid_inputs(input_hw))
+            return pred.to(torch.float32)
+        pred = module(x, **self.grid_inputs(tuple(x.shape[2:])))
+        return interpolate(pred[:, None].to(torch.float32), out_hw,
+                           self.bundle.upsample_mode,
+                           self.bundle.upsample_align_corners)[:, 0]
+
     def _forward(self, imgs01: torch.Tensor, net_w: int, net_h: int,
                  resize_mode: Optional[str] = None) -> torch.Tensor:
         """(N, H, W, 3) float RGB in [0, 1] on the device -> (N, H, W) f32
         raw prediction at the input size."""
         if self.bundle.prep_in_model:
-            return self._forward_in_model(imgs01, net_w, net_h)
+            x = imgs01.to(torch.float32)
+            if self.bundle.preprocess.swap_channels:
+                x = x.flip(-1)
+            return self.forward_net(x.permute(0, 3, 1, 2).contiguous(),
+                                    net_size=(net_h, net_w))
         x = preprocess_images(imgs01, net_w, net_h, self.bundle.preprocess,
                               resize_mode)
-        pred = self.bundle.module(x.to(self.compute_dtype),
-                                  **self.grid_inputs(tuple(x.shape[2:])))
-        pred = pred[:, None].to(torch.float32)
-        out_h, out_w = imgs01.shape[1:3]
-        return interpolate(pred, (out_h, out_w), self.bundle.upsample_mode,
-                           self.bundle.upsample_align_corners)[:, 0]
+        return self.forward_net(x, imgs01.shape[1:3])
 
-    def _forward_in_model(self, imgs01: torch.Tensor, net_w: int,
-                          net_h: int) -> torch.Tensor:
-        """ZoeDepth: the image in [0, 1] (channels swapped as the bundle
-        says) in the compute dtype, the grid inputs of the net input that
-        ``net_input_size`` gives; the module returns the input size."""
-        x = imgs01.to(torch.float32)
-        if self.bundle.preprocess.swap_channels:
-            x = x.flip(-1)
-        x = x.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
-        module = self.bundle.module
-        h, w = x.shape[2:]
-        net_size = (net_h, net_w)
-        input_hw = module.net_input_size(h, w, net_size, module.img_size)
-        pred = module(x, net_size=net_size, **self.grid_inputs(input_hw))
-        return pred.to(torch.float32)
+    def _pipeline_raw(self, img01: np.ndarray, net_w: int) -> np.ndarray:
+        """A host pipeline's (Marigold's) (H, W) raw map of one image: the
+        pipeline at processing resolution ``net_w``, resized back
+        (INTER_CUBIC)."""
+        from depthmap_tpu_torch.ops.resize import cv2_resize_cubic
+        img01 = np.asarray(img01, np.float32)
+        depth = self.bundle.module(
+            img01, processing_res=net_w,
+            ensemble_size=self.marigold_ensembles,
+            denoising_steps=self.marigold_steps, match_input_res=False)
+        return cv2_resize_cubic(depth, (img01.shape[1], img01.shape[0]))
+
+    def _raw_batch(self, imgs01, net_w: int, net_h: int,
+                   resize_mode: Optional[str] = None) -> torch.Tensor:
+        """(N, H, W) raw maps on the device; a host pipeline one image at
+        a time."""
+        if self.bundle.host_pipeline:
+            return torch.from_numpy(np.stack([
+                self._pipeline_raw(f, net_w) for f in np.asarray(imgs01)
+            ])).to(self.device)
+        return self._forward(self._to_device(imgs01), net_w, net_h,
+                             resize_mode)
 
     def _to_device(self, imgs01) -> torch.Tensor:
         return torch.as_tensor(np.asarray(imgs01, np.float32)).to(
@@ -176,6 +218,8 @@ class DepthPredictor:
                 resize_mode: Optional[str] = None) -> np.ndarray:
         """img01: (H, W, 3) float RGB in [0,1] -> raw prediction (H, W)."""
         net_w, net_h = self._default_size(net_w, net_h)
+        if self.bundle.host_pipeline:
+            return self._pipeline_raw(img01, net_w)
         x = self._to_device(img01)[None]
         return self._forward(x, net_w, net_h, resize_mode)[0].cpu().numpy()
 
@@ -185,8 +229,8 @@ class DepthPredictor:
         """(N, H, W, 3) same-shape stack -> (N, H, W) raw predictions, one
         forward over the batch."""
         net_w, net_h = self._default_size(net_w, net_h)
-        x = self._to_device(imgs01)
-        return self._forward(x, net_w, net_h, resize_mode).cpu().numpy()
+        return self._raw_batch(imgs01, net_w, net_h,
+                               resize_mode).cpu().numpy()
 
     def finalized_batch(self, imgs01, net_w: int, net_h: int, *,
                         clip: bool = False, clip_mode: str = "Range",
@@ -194,8 +238,7 @@ class DepthPredictor:
                         resize_mode: Optional[str] = None) -> torch.Tensor:
         """The device half of predict_finalized_batch: (N, H, W) uint16 on
         the device, each frame finalized against its own range."""
-        raw = self._forward(self._to_device(imgs01), net_w, net_h,
-                            resize_mode)
+        raw = self._raw_batch(imgs01, net_w, net_h, resize_mode)
         return numerics.finalize_i16(raw, invert=self.raw_prediction_invert,
                                      clip=bool(clip), clip_mode=clip_mode,
                                      clip_far=float(clip_far),

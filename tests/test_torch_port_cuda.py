@@ -46,7 +46,8 @@ from depthmap_tpu_torch.ops import stereo as S
 # BEiT-384 N = 577 with a bias (rows padded to 592).  ZoeDepth's BEiT-384
 # core runs under flip TTA, one bias shared across the doubled batch: N =
 # 1025 at batch 8 and 1009 at batch 2 (n / nk), 2305 at batch 8 and 1345
-# at batch 2 (k), and 769 in f32 (the numerics phase's 384 x 512 image).
+# at batch 2 (k), and 769 in f32 (the numerics phase's 384 x 512 image);
+# then Boost's and Marigold's calls.
 K1_CASES = {
     "bf16_shared_1025": (torch.bfloat16, 4, 16, 1025, 1025, "shared", None),
     "bf16_shared_1793": (torch.bfloat16, 1, 16, 1793, 1793, "shared", None),
@@ -81,7 +82,27 @@ K1_CASES = {
     "bf16_shared_b2_1345": (torch.bfloat16, 2, 16, 1345, 1345, "shared",
                             None),
     "f32_shared_b2_769": (torch.float32, 2, 16, 769, 769, "shared", None),
+    # Boost on BEiT-L 512 (a bias shared across the batch): the whole
+    # image at R_x 1536 on a 4:3 input (96 x 72 + 1) and a square one
+    # (96^2 + 1), the patches at 1024^2 (64^2 + 1), the whole image at 512
+    # on a 4:3 input (32 x 24 + 1)
+    "bf16_shared_6913": (torch.bfloat16, 1, 16, 6913, 6913, "shared", None),
+    "bf16_shared_9217": (torch.bfloat16, 1, 16, 9217, 9217, "shared", None),
+    "bf16_shared_b4_4097": (torch.bfloat16, 4, 16, 4097, 4097, "shared",
+                            None),
+    "bf16_shared_769": (torch.bfloat16, 1, 16, 769, 769, "shared", None),
 }
+# Marigold's UNet at res 768 on a 4:3 input (latent 96 x 72, the ensemble
+# of 5 on the batch), f32 (what its attention runs in, in its bf16 mode
+# too: flax's promotion) and bf16 (the tensor-core body at those shapes):
+# self-attention at the four levels and cross-attention on the empty
+# prompt's 77 keys (13 in the last kv tile)
+K1_CASES.update({
+    f"{dn}_b5_h{h}_{n}_{kind}": (dt, 5, h, n, 77 if kind == "cross" else n,
+                                 None, None)
+    for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for kind in ("self", "cross")
+    for h, n in ((5, 6912), (10, 1728), (20, 432), (20, 108))})
 
 
 def _fault_errors(q, k, v, bias, scale, want):
@@ -565,3 +586,36 @@ def test_normalmap_card_matches_cpu(pre_blur, sobel_k):
                 diff = (got.cpu().int() - want.int()).abs()
                 assert int(diff.max()) <= 1, (kind, args)
                 assert float((diff > 0).float().mean()) <= 1e-3, (kind, args)
+
+
+@pytest.mark.cuda
+def test_small_marigold_card_matches_cpu():
+    """Marigold's pipeline on small nets with heads of D = 64 (UNet base
+    64: 1, 2 and 4 heads; VAE base 32), 48 x 64 members, 2 steps, the same
+    noise, f32: K1 runs the 16 self- and 16 cross-attentions of each UNet
+    forward on the card (the 77 keys of the empty prompt), none on the
+    CPU; the members hold to 1e-3 of the CPU's range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from depthmap_tpu_torch.models.marigold.pipeline import build_marigold
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline.depth import set_fp32_precision
+    set_fp32_precision(torch.device("cuda"))
+    sd = init_random_(build_marigold(base=64, vae_base=32, context_dim=64),
+                      seed=2).state_dict()
+    img = np.random.default_rng(4).random((48, 64, 3)).astype(np.float32)
+    rgb = torch.from_numpy(img).permute(2, 0, 1)[None].expand(2, -1, -1, -1)
+    noise = torch.randn((2, 4, 6, 8), generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = build_marigold(base=64, vae_base=32, context_dim=64)
+        pipe.load_state_dict(sd)
+        pipe = pipe.to(dev).eval()
+        before = fa.flash_attention_cuda.launches
+        out[dev] = pipe.single_infer(rgb.to(dev), 2, noise).cpu().numpy()
+        out[dev + "_launches"] = fa.flash_attention_cuda.launches - before
+    assert (out["cuda_launches"], out["cpu_launches"]) == (64, 0)
+    rng_ = float(np.ptp(out["cpu"]))
+    assert rng_ > 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-3 * rng_)

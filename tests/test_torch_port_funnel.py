@@ -178,18 +178,28 @@ def test_gpu_device_needs_cuda(rng):
 
 
 def test_unported_options_raise(rng):
+    """Background removal and the inpainted mesh raise, naming their
+    ROADMAP items; Boost and Marigold (type 10) are ported: Boost on a
+    custom depth map makes no prediction, as in the JAX funnel, and
+    build_model(10) builds the pipeline (on the meta device here)."""
     imgs = _images(rng, [(16, 16)])
     dm = [rng.random((16, 16))]
-    for opt in ("boost", "gen_rembg", "gen_inpainted_mesh"):
+    for opt in ("gen_rembg", "gen_inpainted_mesh"):
         inp = TOptions(compute_device="CPU", **{opt: True})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
-    with pytest.raises(NotImplementedError, match=r"item 10 \(Boost\)"):
-        list(tcore.core_generation_funnel(
-            None, imgs, dm, None, TOptions(compute_device="CPU", boost=True)))
-    from depthmap_tpu_torch.models.build import build_model
-    with pytest.raises(NotImplementedError, match=r"item 12 \(Marigold\)"):
-        build_model(10)
+    assert "boost" not in tcore._NOT_PORTED
+    plain = list(tcore.core_generation_funnel(
+        None, imgs, dm, None, TOptions(compute_device="CPU")))
+    boosted = list(tcore.core_generation_funnel(
+        None, imgs, dm, None, TOptions(compute_device="CPU", boost=True)))
+    assert [t for _, t, _ in boosted] == [t for _, t, _ in plain]
+    np.testing.assert_array_equal(boosted[0][2], plain[0][2])
+    from depthmap_tpu_torch.models import build
+    from depthmap_tpu_torch.models.marigold.pipeline import MarigoldPipeline
+    assert not hasattr(build, "_ROADMAP")
+    with torch.device("meta"):
+        assert isinstance(build.build_model(10).module, MarigoldPipeline)
 
 
 def test_cli_depthmap_stereo(rng, tmp_path):
@@ -216,16 +226,22 @@ def test_cli_depthmap_stereo(rng, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the package (walked, so the model modules that
-    build_model loads lazily count too) imports no JAX and nothing of the
-    JAX package."""
+    build_model loads lazily count too) and chip_smoke.py (imported as a
+    module, its main not run) import no JAX and nothing of the JAX
+    package."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import depthmap_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'depthmap_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'depthmap_tpu_torch.models.efficientnet' in sys.modules\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "'chip_smoke.py')\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "assert callable(smoke.main)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'depthmap_tpu')]\n"
         "print(len(names), bad)\n"
