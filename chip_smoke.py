@@ -37,8 +37,9 @@ and prints no result):
      error of three planted faults (a kv tile skipped, the output
      scaled), each of which must exceed the bound;
   3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
-     8 cases on a random depth map (the timed one: sharp, +-24 px) and one
-     timed case on a smooth map, like the main path's; at 512x512 (the
+     4 cases on a random depth map (sharp +24 and -48 px, soft -24 and +48;
+     the timed one: sharp, +24 px) and one timed case on a smooth map,
+     like the main path's; at 512x512 (the
      main path's other eyes), sharp at its +-6.4 px, random and smooth;
      each stage's time (the sort, the sweep), the sweep's steps per row
      and its time per step, and the bound;
@@ -106,15 +107,33 @@ and prints no result):
      times a UNet forward, 384 an image; s per image, peak memory; then the
      full-width nets at processing_res 64, ensemble 2, 2 steps, the same
      noise, f32, card against CPU (the members before the ensemble).
-Each model path (4, 6, 7, 9, 10, 12, 13, 14) sets every kernel count to 0
-just
-before each timed run and reads it just after.  With --profile, torch.profiler
-over one warm funnel run per path gives each path's device time and K1's
-/ K2's share of it (K2: both stages).  The last lines: the card's name and power
-limit, a JSON line with each kernel's numbers (K1's launches: the sum over
-phases 4, 6, 7, 9, 10 and 12, each path's count beside it; K2's: phase 4's
-sweeps),
-and {"ok": true, "device": {...}}.
+ 15. video mode through gen_video: GenerationOptions() (DA v2 Base, net
+     448) with polylines_sharp stereo on 20 textured 1920 x 1080 PNG
+     frames: pass 1 in chunks of 8 (the tail of 4 its own batch, 36 K1
+     launches), pass 2 with the maps injected (no K1; K2's sort and sweep
+     once per eye, 40 each), the depth AVI and the stereo GIFs written;
+     pass 1's frames / s, pass 2's s per frame, the writes, peak memory;
+     then predict_batch_stream equal to predict_batch chunk by chunk;
+ 16. the 3D photo through core_generation_funnel (GenerationOptions(),
+     gen_inpainted_mesh) on one textured 768 x 1024 image, from a working
+     directory whose models/3dphoto holds seeded full-width checkpoints
+     (the edge net's spectral norm as weight_orig / _u / _v): 12 K1
+     launches, the inpainting nets' calls on the card, an OBJ of at least
+     H x W vertices; the ms of the filter, the LDI's host work, the nets
+     and the write; then the funnel's 4 demo trajectories at 30 frames
+     each (the funnel runs 300), render and footprint ms per frame and K,
+     and one run_makevideo at vid_ssaa 3 over 4 frames; card against CPU:
+     the weighted median (equal), each net on one crop (NET_RTOL of the
+     range), one rendered frame (99.9% of the pixels equal, |d| <= 2).
+Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16) sets every kernel
+count to 0 just before each timed run and reads it just after.  With
+--profile, torch.profiler over one warm funnel run per path (video mode:
+one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
+path's device time and K1's / K2's share of it (K2: both stages).  The
+last lines: the card's name and power limit, a JSON line with each
+kernel's numbers (K1's launches: the sum over the model paths, each
+path's count beside it; K2's: the sweeps of phase 4 and of phase 15's
+pass 2, each beside it), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -334,6 +353,12 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
       for dn, dt in (("f32", "float32"), ("bf16", "bfloat16"))
       for kind in ("self", "cross77")
       for h, n in ((5, 6912), (10, 1728), (20, 432), (20, 108))],
+    # DA v2 Base (net 448) in video mode's pass 1 on 1080p frames: chunks
+    # of 8 and the tail of 4 (448 x 798: N = 1825); the 3D photo's one
+    # 4:3 image (768 x 1024 -> 448 x 602: 32 x 43 + 1)
+    ("bf16_b8_h12_n1825_none", "bfloat16", 8, 12, 1825, None),
+    ("bf16_b4_h12_n1825_none", "bfloat16", 4, 12, 1825, None),
+    ("bf16_b1_h12_n1377_none", "bfloat16", 1, 12, 1377, None),
 ]
 
 
@@ -489,8 +514,11 @@ def phase_k2():
     # (rows, depth, sharp, divergence px); the main path's eyes are sharp,
     # at +-2.5% / 2 of the width: +-24 px at 1080p, +-6.4 px at 512^2.  The
     # first case of each (rows, depth) is timed by stage.
-    cases = [(1080, "random", sharp, div) for sharp in (True, False)
-             for div in (24.0, -24.0, 48.0, -48.0)] + \
+    # (at 1080p each sharp / soft fill at one sign and magnitude of each;
+    # the other four variants run in tests/test_torch_port_cuda.py at
+    # smaller shapes, which keeps the smoke inside its time)
+    cases = [(1080, "random", True, 24.0), (1080, "random", True, -48.0),
+             (1080, "random", False, -24.0), (1080, "random", False, 48.0)] + \
         [(1080, "smooth", True, 24.0)] + \
         [(512, depth, True, div) for depth in ("random", "smooth")
          for div in (6.4, -6.4)]
@@ -547,42 +575,47 @@ def profile_paths(cache, inp, paths, ops=None):
     """torch.profiler over one warm funnel run of each path (label,
     images; the funnel's ``ops``): device time by kernel, and K1's and
     K2's share of it."""
+    from depthmap_tpu_torch.pipeline.core import core_generation_funnel
+    for label, imgs in paths:
+        profile_call(label, lambda: list(core_generation_funnel(
+            None, imgs, None, None, inp, ops, predictor_cache=cache)))
+
+
+def profile_call(label, fn):
+    """torch.profiler over one call of ``fn``: its wall ms, device ms by
+    kernel, the busy share, and K1's and K2's share of the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from depthmap_tpu_torch.pipeline.core import core_generation_funnel
-    for label, imgs in paths:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in core_generation_funnel(None, imgs, None, None, inp, ops,
-                                            predictor_cache=cache):
-                pass
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        dev = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = e.self_cuda_time_total
-            dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
-        total = sum(dev.values())
-        if total <= 0:
-            raise AssertionError("the profiler saw no device time")
-        k1 = sum(t for k, t in dev.items() if "flash_fwd" in k)
-        k2_sort = sum(t for k, t in dev.items() if "polylines_sort" in k)
-        k2_sweep = sum(t for k, t in dev.items() if "polylines_sweep" in k)
-        k2 = k2_sort + k2_sweep
-        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-        log("profile", path=label, wall_ms=f"{wall_ms:.2f}",
-            device_ms=f"{total:.2f}", busy=f"{total / wall_ms:.3f}",
-            k1_ms=f"{k1:.2f}", k1_share=f"{k1 / total:.3f}",
-            k2_ms=f"{k2:.2f}", k2_share=f"{k2 / total:.3f}",
-            k2_sort_ms=f"{k2_sort:.2f}", k2_sweep_ms=f"{k2_sweep:.2f}",
-            top=repr([(k[:48], round(t, 3)) for k, t in top]))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+    total = sum(dev.values())
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    k1 = sum(t for k, t in dev.items() if "flash_fwd" in k)
+    k2_sort = sum(t for k, t in dev.items() if "polylines_sort" in k)
+    k2_sweep = sum(t for k, t in dev.items() if "polylines_sweep" in k)
+    k2 = k2_sort + k2_sweep
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    log("profile", path=label, wall_ms=f"{wall_ms:.2f}",
+        device_ms=f"{total:.2f}", busy=f"{total / wall_ms:.3f}",
+        k1_ms=f"{k1:.2f}", k1_share=f"{k1 / total:.3f}",
+        k2_ms=f"{k2:.2f}", k2_share=f"{k2 / total:.3f}",
+        k2_sort_ms=f"{k2_sort:.2f}", k2_sweep_ms=f"{k2_sweep:.2f}",
+        top=repr([(k[:48], round(t, 3)) for k, t in top]))
 
 
 def dpt_of(module):
@@ -1382,6 +1415,400 @@ def phase_marigold_numerics(sd):
                              f"{span}")
 
 
+# K1 launches of video mode's pass 1 (20 frames in chunks of 8: 3 forwards
+# of DA v2 Base's 12 blocks) and of the 3D photo's one forward
+VIDEO_FRAMES, VIDEO_CHUNK = 20, 8
+VIDEO_K1 = 3 * 12
+PHOTO_K1 = 12
+# the 3D photo's demo trajectories at 30 frames each (the funnel's demos
+# run 300: cut to keep the smoke inside its time)
+DEMO_FRAMES_SMOKE = 30
+# the inpainting nets, card (TF32 off) against CPU, f32: a share of the
+# CPU output's range
+NET_RTOL = 1e-4
+
+
+class _Timed:
+    """Wrap ``module.name`` (a function) to add its wall seconds (after a
+    card sync) to ``self.seconds`` and keep its last result; ``restore``
+    puts the original back."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.seconds, self.calls, self.last = 0.0, 0, None
+
+        def wrapped(*args, **kw):
+            import torch
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.last = out
+            return out
+        setattr(module, name, wrapped)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def _counts():
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.ops import polylines as pl
+    return (fa.flash_attention_cuda.launches, pl._sort_cuda.launches,
+            pl._sweep_cuda.launches)
+
+
+def _zero_counts():
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.ops import polylines as pl
+    fa.flash_attention_cuda.launches = 0
+    pl._sort_cuda.launches = 0
+    pl._sweep_cuda.launches = 0
+
+
+def _save_pngs(images, directory):
+    from PIL import Image
+    os.makedirs(directory, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:   # zlib releases the GIL
+        list(pool.map(lambda ia: Image.fromarray(ia[1]).save(
+            os.path.join(directory, f"frame{ia[0]:04d}.png")),
+            enumerate(images)))
+
+
+def phase_video(profile: bool = False):
+    """Video mode through gen_video: GenerationOptions() (DA v2 Base, net
+    448) with polylines_sharp stereo on 20 textured 1920 x 1080 PNG frames:
+    pass 1 in chunks of 8 (the tail of 4 its own batch), 36 K1 launches;
+    pass 2 injects the maps, no K1, K2's sort and sweep once per eye (40
+    each).  Then predict_batch_stream against predict_batch chunk by chunk
+    on the card."""
+    import tempfile
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.pipeline import video_mode as vm
+    from depthmap_tpu_torch.pipeline.core import PredictorCache
+    images = _test_images(19, [(1080, 1920)] * VIDEO_FRAMES)
+    inp = GenerationOptions(gen_stereo=True)
+    cache = PredictorCache()
+    pred = cache.get(inp.model_type, device=torch.device("cuda"))
+    stacks = [np.stack(images[s:s + VIDEO_CHUNK]).astype(np.float32) / 255.0
+              for s in range(0, VIDEO_FRAMES, VIDEO_CHUNK)]
+    for s in stacks[-2:]:          # warm-up: cuDNN, the grid's inputs
+        pred.predict_batch(s, 448, 448)
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_pngs(images, os.path.join(tmp, "frames"))
+        pass1 = _Timed(vm, "_predict_video_depths")
+        writes = _Timed(vm, "frames_to_video")
+        pass1_counts = []
+        orig = pass1.orig
+
+        def pass1_then_count(*args, **kw):
+            out = orig(*args, **kw)
+            pass1_counts.append(_counts())
+            return out
+        pass1.orig = pass1_then_count
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            written = vm.gen_video(os.path.join(tmp, "frames"),
+                                   os.path.join(tmp, "out"), inp,
+                                   predictor_cache=cache)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            k1, sorts, sweeps = _counts()
+        finally:
+            pass1.restore()
+            writes.restore()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in written}
+        from depthmap_tpu_torch.io.avi import read_gray16_avi
+        fps, depth = read_gray16_avi([p for p in written
+                                      if p.endswith(".avi")][0])
+    k1_p1, sorts_p1, sweeps_p1 = pass1_counts[0]
+    pass2_s = total - pass1.seconds - writes.seconds
+    log("15-video", model=pred.spec.name, frames=VIDEO_FRAMES,
+        size="1080x1920", chunk=VIDEO_CHUNK,
+        k1_shapes=[(len(s), 12, attention_tokens(pred, inp, images[0]))
+                   for s in stacks],
+        k2_eye="1080x1920", fill=inp.stereo_fill_algo,
+        pass1_s=f"{pass1.seconds:.3f}",
+        pass1_frames_per_s=f"{VIDEO_FRAMES / pass1.seconds:.2f}",
+        pass2_s_per_frame=f"{pass2_s / VIDEO_FRAMES:.4f}",
+        writes_s=f"{writes.seconds:.3f}", s_total=f"{total:.3f}",
+        k1_pass1=k1_p1, k1_pass2=k1 - k1_p1, k2_sorts_pass2=sorts - sorts_p1,
+        k2_sweeps_pass2=sweeps - sweeps_p1, written=sizes,
+        max_memory_allocated_GiB=f"{peak:.3f}")
+    if sorted(sizes) != ["depthmap-0-depth_video.avi",
+                         "depthmap-0-left-right_video.gif",
+                         "depthmap-0-red-cyan-anaglyph_video.gif"]:
+        raise AssertionError(f"video mode wrote {sorted(sizes)}")
+    if len(depth) != VIDEO_FRAMES or depth[0].shape != (1080, 1920) or \
+            int(depth[0].max()) - int(depth[0].min()) <= 0:
+        raise AssertionError("video mode's depth video is not 20 live "
+                             "1080p frames")
+    if (k1_p1, k1 - k1_p1) != (VIDEO_K1, 0):
+        raise AssertionError(f"video: K1 launched {k1_p1} times in pass 1 "
+                             f"and {k1 - k1_p1} in pass 2, expected "
+                             f"{VIDEO_K1} and 0")
+    if (sorts_p1, sweeps_p1) != (0, 0) or \
+            (sorts, sweeps) != (2 * VIDEO_FRAMES, 2 * VIDEO_FRAMES):
+        raise AssertionError(f"video: K2 sorts {sorts} / sweeps {sweeps} "
+                             f"(pass 1: {sorts_p1} / {sweeps_p1}), expected "
+                             f"{2 * VIDEO_FRAMES} each in pass 2")
+    # the stream against predict_batch, chunk by chunk, on the card
+    before = fa.flash_attention_cuda.launches
+    streamed = list(pred.predict_batch_stream(iter(stacks), 448, 448))
+    for got, s in zip(streamed, stacks):
+        want = pred.predict_batch(s, 448, 448)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("predict_batch_stream differs from "
+                                 "predict_batch on the card: max "
+                                 f"{np.abs(got - want).max()}")
+    log("15-video-stream", chunks=[len(s) for s in stacks], equal=True,
+        k1_launches=fa.flash_attention_cuda.launches - before)
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            _save_pngs(images, os.path.join(tmp, "frames"))
+            profile_call("15_video", lambda: vm.gen_video(
+                os.path.join(tmp, "frames"), os.path.join(tmp, "out"), inp,
+                predictor_cache=cache))
+    cache.release()
+    del pred
+    torch.cuda.empty_cache()
+    return k1_p1, sweeps
+
+
+def _crop_planes(image, seed):
+    """One 256 x 256 crop of the image with a context and a hole mask
+    and a disparity and an edge plane, as build_ldi hands them to the
+    nets."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rgb01 = image[100:356, 200:456].astype(np.float32) / 255.0
+    ctx = (rng.random((256, 256)) > 0.4).astype(np.float32)
+    mask = (1 - ctx) * (rng.random((256, 256)) > 0.3).astype(np.float32)
+    disp = (0.3 + rng.random((256, 256))).astype(np.float32)
+    edge = (rng.random((256, 256)) > 0.9).astype(np.float32)
+    return rgb01, disp, edge, ctx, mask
+
+
+def phase_3dphoto(profile: bool = False):
+    """The 3D photo through core_generation_funnel (GenerationOptions(),
+    gen_inpainted_mesh) on one textured 768 x 1024 image, from a working
+    directory whose models/3dphoto holds seeded full-width checkpoints in
+    the reference layout: 12 K1 launches, the nets on the card, an OBJ of
+    at least H x W vertices; the funnel's demo trajectories at 30 frames
+    (run_3dphoto_videos) and one run_makevideo at vid_ssaa 3 over 4
+    frames; then card against CPU: the weighted median, each net on one
+    bucketed crop, one rendered frame."""
+    import tempfile
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.models.weights import \
+        save_random_inpaint_checkpoints
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.pipeline import inpaint_mesh as im
+    from depthmap_tpu_torch.pipeline import inpaint_video as iv
+    from depthmap_tpu_torch.pipeline import render
+    from depthmap_tpu_torch.pipeline.core import (PredictorCache,
+                                                  core_generation_funnel)
+    image = _textured(20, 768, 1024)
+    h, w = image.shape[:2]
+    inp = GenerationOptions(gen_inpainted_mesh=True)
+    cache = PredictorCache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "models", "3dphoto")
+        save_random_inpaint_checkpoints(ckpt, seed=16)
+        os.chdir(tmp)
+        net_calls = im.net_calls
+        stages = {n: _Timed(m, n) for m, n in (
+            (iv, "sparse_bilateral_filtering"), (im, "build_ldi"),
+            (im, "edge_pixel_groups"), (im, "run_net"),
+            (im, "write_mesh_file"))}
+        try:
+            # warm-up: the model and its forward at this size
+            cache.get(inp.model_type, device=torch.device("cuda")) \
+                .predict_finalized(image.astype(np.float32) / 255.0, 448, 448)
+            calls_before = dict(net_calls)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = list(core_generation_funnel(os.path.join(tmp, "out"),
+                                              [image], None, ["photo"], inp,
+                                              predictor_cache=cache))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            k1 = _counts()[0]
+        finally:
+            for t in stages.values():
+                t.restore()
+            os.chdir(cwd)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        calls = {k: v - calls_before.get(k, 0) for k, v in net_calls.items()
+                 if v != calls_before.get(k, 0)}
+        types = [t for _, t, _ in out]
+        mesh = out[-1][2]
+        with open(mesh) as f:
+            head = [next(f) for _ in range(9)]
+        n_verts = int(head[6].split()[-1])
+        n_faces = int(head[7].split()[-1])
+        verts, colors, faces = stages["build_ldi"].last[:3]
+        groups = stages["edge_pixel_groups"].last[1]
+        nets_s = stages["run_net"].seconds
+        filter_s = stages["sparse_bilateral_filtering"].seconds
+        log("16-3dphoto", model=cache._predictor.spec.name,
+            size=f"{h}x{w}",
+            k1_shape=(1, 12, attention_tokens(cache._predictor, inp, image)),
+            s_total=f"{seconds:.3f}", k1_launches=k1,
+            filter_ms=f"{filter_s * 1e3:.1f}",
+            ldi_host_ms=f"{(stages['build_ldi'].seconds - nets_s) * 1e3:.1f}",
+            edge_groups=groups, net_calls=calls, nets_ms=f"{nets_s * 1e3:.1f}",
+            vertices=n_verts, faces=n_faces,
+            write_ms=f"{stages['write_mesh_file'].seconds * 1e3:.1f}",
+            obj_MB=f"{os.path.getsize(mesh) / 1e6:.1f}",
+            max_memory_allocated_GiB=f"{peak:.3f}")
+        if types != ["depth", "inpainted_mesh"]:
+            raise AssertionError(f"3D photo: outputs {types}")
+        if k1 != PHOTO_K1:
+            raise AssertionError(f"3D photo: K1 launched {k1} times, "
+                                 f"expected {PHOTO_K1}")
+        if not calls or set(dev for _, dev in calls) != {"cuda"} or \
+                len(set(calls.values())) != 1:
+            raise AssertionError(f"3D photo: the nets ran {calls}")
+        if n_verts < h * w or n_verts != len(verts) or n_faces == 0:
+            raise AssertionError(f"3D photo: {n_verts} vertices, "
+                                 f"{n_faces} faces, expected >= {h * w}")
+        depth16 = out[0][2]
+
+        # the demo trajectories, 30 frames each
+        ks, footprint = [], _Timed(render.MeshRenderer, "_measure_footprint")
+        renders = _Timed(render.MeshRenderer, "render")
+        orig = footprint.orig
+
+        def measure(self, *a):
+            k = orig(self, *a)
+            ks.append(k)
+            return k
+        footprint.orig = measure
+        try:
+            t0 = time.perf_counter()
+            videos = iv.run_3dphoto_videos(
+                mesh, "photo", os.path.join(tmp, "demos"),
+                DEMO_FRAMES_SMOKE, iv.DEMO_FPS, vid_dolly=False,
+                vid_format="mp4", vid_ssaa=1, **iv.DEMO_TRAJECTORIES)
+            demo_s = time.perf_counter() - t0
+            n_demo = renders.calls
+            render_s, foot_s = renders.seconds, footprint.seconds
+            t0 = time.perf_counter()
+            made = iv.run_makevideo(mesh, 4, 40, 1, "0.02,0.01,-0.05",
+                                    "0.03,0.03,0.05,0.03", False, "mp4", 3,
+                                    outpath=os.path.join(tmp, "made"))
+            make_s = time.perf_counter() - t0
+        finally:
+            footprint.restore()
+            renders.restore()
+        log("16-3dphoto-videos", trajectories=4, frames=DEMO_FRAMES_SMOKE,
+            renders=n_demo, demo_s=f"{demo_s:.3f}",
+            render_ms_per_frame=f"{render_s * 1e3 / n_demo:.2f}",
+            footprint_ms_per_frame=f"{foot_s * 1e3 / n_demo:.2f}",
+            K=sorted(set(ks)),
+            written={os.path.basename(p): os.path.getsize(p)
+                     for p in videos},
+            makevideo_ssaa3_s=f"{make_s:.3f}",
+            makevideo=os.path.basename(made[0]))
+        if len(videos) != 4 or n_demo != 4 * DEMO_FRAMES_SMOKE:
+            raise AssertionError(f"3D photo demos: {videos}, {n_demo} "
+                                 "renders")
+        mesh_data = iv._video_mesh["data"]     # read by the videos above
+        if profile:
+            os.chdir(tmp)
+            try:
+                profile_call("16_3dphoto", lambda: list(
+                    core_generation_funnel(os.path.join(tmp, "prof"),
+                                           [image], None, None, inp,
+                                           predictor_cache=cache)))
+            finally:
+                os.chdir(cwd)
+            profile_call("16_3dphoto_demo_render", lambda: iv.output_3d_photo(
+                *mesh_data[:7], [[np.eye(4)] * 4], [""],
+                os.path.join(tmp, "prof_render"), "r", {"fps": 40},
+                mesh_data[7]))
+        photo_numerics(image, depth16, ckpt, mesh_data)
+    cache.release()
+    torch.cuda.empty_cache()
+    return k1
+
+
+def photo_numerics(image, depth16, ckpt, mesh):
+    """Card against CPU: the weighted median (window 7) on the phase's
+    depth, equal; each net on one 256 x 256 crop (bucket 256), f32 with
+    TF32 off, within NET_RTOL of the CPU output's range; one frame of the
+    phase's mesh rendered at a 512 canvas: equal on >= 99.9% of the pixels
+    and |d| <= 2 elsewhere."""
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.pipeline import inpaint_mesh as im
+    from depthmap_tpu_torch.pipeline import inpaint_video as iv
+    from depthmap_tpu_torch.pipeline.render import MeshRenderer
+    depth = iv.disparity_to_depth(depth16)
+    disc = im.vis_depth_discontinuity(depth, 0.04)
+    med, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        med[dev] = im.weighted_median_filter(
+            torch.from_numpy(depth).to(dev), torch.from_numpy(disc).to(dev),
+            7).cpu().numpy()
+        ms[f"median_{dev}"] = (time.perf_counter() - t0) * 1e3
+    median_diff = int((med["cuda"] != med["cpu"]).sum())
+    planes = _crop_planes(image, 21)
+    errs = {}
+    nets = {dev: im.build_inpaint_callables(ckpt, device=dev)
+            for dev in ("cuda", "cpu")}
+    depth_crop = depth[100:356, 200:456].astype(np.float32)
+    args = {"edge": planes,
+            "depth": (depth_crop, planes[2], planes[3], planes[4]),
+            "color": (planes[0], planes[2], planes[3], planes[4])}
+    for name, a in args.items():
+        got = nets["cuda"][name](*a)
+        want = nets["cpu"][name](*a)
+        span = float(np.ptp(want))
+        errs[name] = (float(np.abs(got - want).max()), span)
+    verts, colors, faces, H, W, hfov, vfov, _ = mesh
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        frames[dev] = MeshRenderer(verts, colors, faces, max(hfov, vfov),
+                                   512, device=dev).render(
+                                       np.array([0.01, -0.01, -0.02]))
+        ms[f"render_512_{dev}"] = (time.perf_counter() - t0) * 1e3
+    d = np.abs(frames["cuda"].astype(int) - frames["cpu"])
+    off = float(d.any(-1).mean())
+    log("16-3dphoto-numerics", median_pixels_differ=median_diff,
+        **{f"{k}_max_abs_err": f"{e:.3e}" for k, (e, _) in errs.items()},
+        **{f"{k}_range": f"{s:.4f}" for k, (_, s) in errs.items()},
+        net_tol=f"{NET_RTOL} x range", frame_pixels_differ=f"{off:.5f}",
+        frame_max_diff=int(d.max()),
+        **{k: f"{v:.1f}" for k, v in ms.items()})
+    if median_diff:
+        raise AssertionError(f"weighted median: {median_diff} pixels differ "
+                             "between the card and the CPU")
+    bad = {k: v for k, v in errs.items()
+           if not (v[1] > 0 and v[0] <= NET_RTOL * v[1])}
+    if bad:
+        raise AssertionError(f"inpainting nets card vs CPU: {bad}")
+    if off > 1e-3 or d.max() > 2:
+        raise AssertionError(f"rendered frame card vs CPU: {off} of the "
+                             f"pixels differ, up to {d.max()}")
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -1411,6 +1838,10 @@ def main() -> int:
                                                    profile)
     k1_by_path.update({f"marigold_{dt}": n for dt, n in timed(
         "14", phase_marigold, profile).items()})
+    k1_by_path["video_pass1_da_v2_base"], k2_video = timed(
+        "15", phase_video, profile)
+    k1_by_path["3dphoto_da_v2_base"] = timed("16", phase_3dphoto, profile)
+    k2_by_path = {"dpt_beit_large_512": k2_launches, "video_pass2": k2_video}
     log("phases", seconds=seconds)
     import torch
 
@@ -1428,9 +1859,12 @@ def main() -> int:
         row("flash_attention", K1_SOURCE, K1_REPLACES,
             sum(k1_by_path.values()), k1_err, k1,
             device_ms=k1["device_ms"], launches_by_path=k1_by_path),
-        # K2's launches: its sweep's, one per eye of the BEiT path's
-        # polylines stereo (each eye also launched one sort, checked there)
-        row("polylines", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2),
+        # K2's launches: its sweep's, one per eye of the BEiT path's and
+        # of video mode's polylines stereo (each eye also launched one
+        # sort, checked there), per path beside it
+        row("polylines", K2_SOURCE, K2_REPLACES,
+            sum(k2_by_path.values()), k2_err, k2,
+            launches_by_path=k2_by_path),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

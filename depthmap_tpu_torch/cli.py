@@ -5,10 +5,11 @@
 
 Same flags as ``depthmap_tpu/frontends/cli.py``; every yielded artifact is
 saved into the output directory with sequence-numbered names (the simple
-mesh is written there by the funnel).  Options the port does not have yet
-(video, the REST server, the web UI, and the outputs the funnel rejects)
-raise NotImplementedError.  PIL is
-imported only to load and save images.
+mesh and the inpainted mesh are written there by the funnel).  ``--video``
+runs video mode (``pipeline/video_mode.py gen_video``) on a video file or a
+directory of frames.  Options the port does not have yet (the REST server,
+the web UI, and the outputs the funnel rejects) raise NotImplementedError.
+PIL is imported only to load and save images.
 """
 from __future__ import annotations
 
@@ -150,11 +151,16 @@ def _load_images(paths):
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag, item in (("ui", "Queue 1 item 14 (frontends)"),
-                       ("serve", "Queue 1 item 14 (frontends)"),
-                       ("video", "Queue 1 item 11 (video mode)")):
+                       ("serve", "Queue 1 item 14 (frontends)")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md {item}")
+    if args.video is not None:
+        from depthmap_tpu_torch.pipeline.video_mode import gen_video
+        for fn in gen_video(args.video, args.output, args_to_options(args),
+                            smoothening=args.smoothening):
+            print(f"saved {fn}")
+        return 0
     files = collect_inputs(args.inputs)
     if not files:
         print("No input images given", file=sys.stderr)

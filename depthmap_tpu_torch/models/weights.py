@@ -147,7 +147,8 @@ def _put_midas_decoder(sd, p, zero_rcu1: bool = False):
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables (numpy leaves) -> the port's state dict, through the
-    inverse of the converter that made that tree: ZoeDepth (a ``model``,
+    inverse of the converter that made that tree: the inpainting nets (an
+    ``enc0`` or a ``unet``), ZoeDepth (a ``model``,
     held by the port's wrapper under ``model.``),
     LeReS (an ``encoder``), Depth Anything (a ``depth_head``), the DPT
     models (a ``backbone``: the hybrid's holds a ResNet ``backbone``,
@@ -157,6 +158,8 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     if "netG" in p:
         raise ValueError("a pix2pix tree: state_dict_from_jax_pix2pix "
                          "carries it")
+    if "enc0" in p or "unet" in p:
+        return state_dict_from_jax_inpaint(variables)
     if "model" in p:
         return {f"model.{k}": v
                 for k, v in _state_dict_from_jax_zoe(p["model"]).items()}
@@ -766,3 +769,154 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
                       "pos_embed", "mask_token"):
             prm.copy_(torch.randn(prm.shape, generator=g) * 0.02)
     return model
+
+
+# -- the 3D photo's inpainting nets (edge / depth / colour) ---------------
+
+INPAINT_FILES = {"edge": ("edge-model.pth", "edge_model.pth"),
+                 "depth": ("depth-model.pth", "depth_model.pth"),
+                 "color": ("color-model.pth", "color_model.pth")}
+
+
+def state_dict_from_jax_inpaint(variables: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_inpaint.convert_edge_net`` (a tree with
+    ``enc0``: the edge net, its spectral norm already folded) and of
+    ``convert_pconv_unet`` (a ``unet`` tree: the depth net, or the colour
+    net when it holds ``dec_1A``), with the mask convs' all-ones weights."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    if "enc0" in p:
+        for jax_name, name in (("enc0", "encoder_0.1"),
+                               ("enc1", "encoder_1.0"),
+                               ("enc2", "encoder_2.0"),
+                               ("dec2", "decoder_2.1")):
+            _put_conv(sd, name, p[jax_name])
+        for jax_name, name in (("dec0", "decoder_0.0"),
+                               ("dec1", "decoder_1.0")):
+            sd[f"{name}.weight"] = _convt(p[jax_name]["kernel"])
+            sd[f"{name}.bias"] = _t(p[jax_name]["bias"])
+        for i in range(sum(1 for k in p if k.startswith("res"))):
+            for conv, idx in (("conv1", 1), ("conv2", 5)):
+                _put_conv(sd, f"middle.{i}.conv_block.{idx}",
+                          p[f"res{i}"][conv], bias=False)
+        return sd
+    unet, stats = p["unet"], variables.get("batch_stats", {}).get("unet", {})
+    for name, entry in unet.items():
+        conv = entry["conv"]
+        w = _conv(conv["input_conv"]["kernel"])
+        sd[f"{name}.conv.input_conv.weight"] = w
+        sd[f"{name}.conv.mask_conv.weight"] = torch.ones_like(w)
+        if "bias" in conv:
+            sd[f"{name}.conv.input_conv.bias"] = _t(conv["bias"])
+        if "bn" in entry:
+            _put_bn(sd, f"{name}.bn", entry["bn"], stats[name]["bn"])
+    return sd
+
+
+def spectral_fold(w: np.ndarray, u: np.ndarray, v: Optional[np.ndarray],
+                  transposed: bool) -> np.ndarray:
+    """A spectral-norm conv's effective weight, as torch's eval-time
+    ``compute_weight`` makes it and ``convert_inpaint.spectral_weight``
+    restates it: weight_orig / sigma, sigma = u^T W v with the stored u and
+    v, W the weight flattened over its dim 0 (dim 1 for a transposed
+    conv); without a stored v, v = W^T u normalized."""
+    dim = 1 if transposed else 0
+    if w.shape[dim] != u.shape[0]:
+        raise ValueError(f"spectral norm: weight {w.shape} against u "
+                         f"{u.shape} over dim {dim}")
+    wm = np.moveaxis(w, dim, 0).reshape(w.shape[dim], -1)
+    if v is None:
+        v = wm.T @ u
+        v = v / max(np.linalg.norm(v), 1e-12)
+    sigma = float(u @ (wm @ v))
+    return w / sigma
+
+
+def _fold_spectral(sd: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A checkpoint's ``weight_orig`` / ``weight_u`` / ``weight_v`` triples
+    folded into plain ``weight``s (``spectral_fold``; transposed where the
+    module's layer is a ConvTranspose2d)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in sd.items():
+        if key.endswith((".weight_u", ".weight_v")):
+            continue
+        if not key.endswith(".weight_orig"):
+            out[key] = val
+            continue
+        name = key[:-len(".weight_orig")]
+        v = sd.get(name + ".weight_v")
+        transposed = isinstance(module.get_submodule(name),
+                                nn.ConvTranspose2d)
+        out[name + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+            spectral_fold(val.numpy(), sd[name + ".weight_u"].numpy(),
+                          None if v is None else v.numpy(), transposed)))
+    return out
+
+
+def load_inpaint_nets(weights_dir: str) -> Optional[Dict[str, nn.Module]]:
+    """The three nets ({"edge", "depth", "color"}, on the host, in eval)
+    with ``edge-model.pth``, ``depth-model.pth`` and ``color-model.pth``
+    (or their underscore names) from ``weights_dir`` loaded strictly, the
+    edge net's spectral norm folded.  None when none of the three files is
+    there; FileNotFoundError when only some are."""
+    from depthmap_tpu_torch.models.inpaint_nets import (InpaintColorNet,
+                                                        InpaintDepthNet,
+                                                        InpaintEdgeNet)
+    paths = {}
+    for key, names in INPAINT_FILES.items():
+        paths[key] = next((p for p in (os.path.join(weights_dir, n)
+                                       for n in names)
+                           if os.path.exists(p)), None)
+    if all(p is None for p in paths.values()):
+        return None
+    missing = [k for k, p in paths.items() if p is None]
+    if missing:
+        raise FileNotFoundError(
+            f"3D-photo inpainting checkpoints missing in {weights_dir}: "
+            f"{missing} (found {[k for k in paths if k not in missing]})")
+    nets = {"edge": InpaintEdgeNet(), "depth": InpaintDepthNet(),
+            "color": InpaintColorNet()}
+    for key, path in paths.items():
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        nets[key].load_state_dict(_fold_spectral(sd, nets[key]), strict=True)
+        nets[key].eval()
+    return nets
+
+
+def edge_net_with_spectral_norm(net: nn.Module) -> nn.Module:
+    """The edge net as the reference wraps it: torch's spectral norm on
+    every conv but the last (``decoder_2.1``), so its state dict holds the
+    checkpoint's ``weight_orig`` / ``weight_u`` / ``weight_v``."""
+    for name, mod in list(net.named_modules()):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)) and \
+                name != "decoder_2.1":
+            nn.utils.spectral_norm(mod)
+    return net
+
+
+@torch.no_grad()
+def save_random_inpaint_checkpoints(weights_dir: str, seed: int = 0) -> None:
+    """Write seeded random-init ``edge-model.pth``, ``depth-model.pth`` and
+    ``color-model.pth`` at full width in the reference checkpoints' key
+    layout (the mask convs all ones; the edge net spectral-normed, its u
+    and v from three power iterations) into ``weights_dir``."""
+    from depthmap_tpu_torch.models.inpaint_nets import (InpaintColorNet,
+                                                        InpaintDepthNet,
+                                                        InpaintEdgeNet)
+    os.makedirs(weights_dir, exist_ok=True)
+    nets = {"edge": InpaintEdgeNet(), "depth": InpaintDepthNet(),
+            "color": InpaintColorNet()}
+    for i, net in enumerate(nets.values()):
+        init_random_(net, seed + i)
+        for name, prm in net.named_parameters():
+            if ".mask_conv." in name:
+                prm.fill_(1.0)
+    with torch.random.fork_rng(devices=[]):    # spectral norm draws u, v
+        torch.manual_seed(seed)
+        edge = edge_net_with_spectral_norm(nets["edge"]).train()
+        for _ in range(3):  # each training-mode forward: a power iteration
+            edge(torch.zeros((1, 7, 16, 16)))
+    for key, net in nets.items():
+        torch.save(net.eval().state_dict(),
+                   os.path.join(weights_dir, INPAINT_FILES[key][0]))

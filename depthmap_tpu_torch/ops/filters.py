@@ -98,3 +98,36 @@ def np_gradient_2d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         last = a.narrow(axis, n - 1, 1) - a.narrow(axis, n - 2, 1)
         return torch.cat([first, interior, last], axis)
     return grad(x, 0), grad(x, 1)
+
+
+# -- the 3D photo's host filters (numpy), restated from cv2 and held
+# against it by tests/test_torch_port_inpaint.py --------------------------
+
+# cv2's bit-exact 8-bit Gaussian: for sigma 0 and k <= 7 its fixed kernels
+# in units of 1/256 (getGaussianKernelBitExact), applied in integers
+_GAUSS_U8 = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16),
+             7: (8, 28, 56, 72, 56, 28, 8)}
+
+
+def cv2_gaussian_blur_u8(img: np.ndarray, ksize: int) -> np.ndarray:
+    """cv2.GaussianBlur(img, (k, k), 0) of a uint8 (H, W[, C]) image for
+    k in 3, 5, 7: the separable integer kernel, REFLECT_101 border, the
+    sum over 1/65536 rounded half up."""
+    taps = np.asarray(_GAUSS_U8[ksize], np.int64)
+    r = ksize // 2
+    pad = ((r, r), (r, r)) + ((0, 0),) * (img.ndim - 2)
+    x = np.pad(np.asarray(img, np.int64), pad, mode="reflect")
+    h, w = img.shape[:2]
+    rows = sum(taps[i] * x[:, i:i + w] for i in range(ksize))
+    total = sum(taps[i] * rows[i:i + h] for i in range(ksize))
+    return ((total + 32768) >> 16).astype(np.uint8)
+
+
+def cv2_blur3(img: np.ndarray) -> np.ndarray:
+    """cv2.blur(img, ksize=(3, 3)) of a float32 (H, W) map: the 3 x 3 mean
+    in f64 (as cv2 sums a float image), REFLECT_101 border, rounded to
+    f32."""
+    h, w = img.shape
+    x = np.pad(np.asarray(img, np.float64), 1, mode="reflect")
+    total = sum(x[i:i + h, j:j + w] for i in range(3) for j in range(3))
+    return (total * (1.0 / 9.0)).astype(np.float32)

@@ -185,3 +185,25 @@ def cv2_dilate(img: np.ndarray, k: int) -> np.ndarray:
     p = np.pad(np.asarray(img), ((a, k - 1 - a), (a, k - 1 - a)),
                constant_values=-np.inf)
     return sliding_window_view(p, (k, k)).max(axis=(-2, -1))
+
+
+def cv2_resize_area_u8(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize(img, size, interpolation=cv2.INTER_AREA) of a uint8
+    (H, W[, C]) image whose size divides by ``size`` (width, height) by one
+    integer factor f: each f x f block's integer sum, over 4 rounded half
+    up for f = 2 (cv2's vector path), else times f32 1 / f^2 rounded to
+    nearest even (its scalar path)."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    f = h // out_h
+    if f < 1 or (out_h * f, out_w * f) != (h, w):
+        raise ValueError(f"INTER_AREA restated for integer factors only: "
+                         f"{(h, w)} -> {(out_h, out_w)}")
+    if f == 1:
+        return np.array(img)
+    s = np.asarray(img, np.int64).reshape(
+        out_h, f, out_w, f, *img.shape[2:]).sum(axis=(1, 3))
+    if f == 2:
+        return ((s + 2) >> 2).astype(np.uint8)
+    return np.rint(s.astype(np.float32) *
+                   np.float32(1.0 / (f * f))).astype(np.uint8)

@@ -16,9 +16,14 @@ W, 4) uint8) and the simple mesh (the path of the OBJ written).  ``boost``
 runs the Boost merge (``pipeline/boost.py``) on any model, up to the
 ``boost_rmax`` op (1600 by default); its pix2pix weights come from
 ``<weights_dir>/pix2pix/latest_net_G.pth``, and without that file it raises
-FileNotFoundError unless DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1.  Background
-removal and the inpainted mesh raise NotImplementedError naming their
-ROADMAP items.  ``compute_device`` picks
+FileNotFoundError unless DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1.
+``gen_inpainted_mesh`` collects every image with its uint16 map and, after
+the last one, runs the 3D photo (``pipeline/inpaint_video.py
+run_3dphoto``: the filter, the nets and the demo renders on the funnel's
+device, the nets from ``./models/3dphoto`` when their checkpoints are
+there) and yields ``(0, "inpainted_mesh", path of the OBJ)``; a failure
+there raises.  Background removal raises NotImplementedError naming its
+ROADMAP item.  ``compute_device`` picks
 the device: "GPU" is CUDA (and raises without it), "CPU" is the host.
 A call that passes no ``predictor_cache`` uses the module's
 ``_default_cache``, so the model stays on its device between calls
@@ -44,7 +49,6 @@ from depthmap_tpu_torch.registry import resolve_model_type
 
 _NOT_PORTED = {
     "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
-    "gen_inpainted_mesh": "Queue 1 item 13 (3D photo)",
 }
 
 
@@ -161,6 +165,13 @@ def to_rgb(image) -> np.ndarray:
     return arr
 
 
+def options_device(inp) -> torch.device:
+    """The torch device ``inp.compute_device`` names: "CPU" is the host,
+    anything else CUDA (which raises without a card)."""
+    return resolve_device(
+        "cpu" if str(inp.compute_device).upper() == "CPU" else "cuda")
+
+
 def _funnel_net_size(inp, w: int, h: int):
     if inp.net_size_match:
         return (w + 31) // 32 * 32, (h + 31) // 32 * 32
@@ -193,8 +204,7 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 f"option {opt} is not ported yet: ROADMAP.md {item}")
     cache = predictor_cache or _default_cache
     ops = ops or {}
-    dev = resolve_device(
-        "cpu" if str(inp.compute_device).upper() == "CPU" else "cuda")
+    dev = options_device(inp)
     predictor_kw: Dict[str, Any] = {"device": dev}
     if ops.get("no_half"):
         predictor_kw["compute_dtype"] = "float32"
@@ -218,6 +228,8 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         inp.boost
     fused: Dict[int, np.ndarray] = {}
     rgb_cache: Dict[int, np.ndarray] = {}
+    inpaint_imgs: List[np.ndarray] = []
+    inpaint_depths: List[np.ndarray] = []
     if predictor is not None and not raw_to_host and len(inputimages) > 1:
         chunk = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH", "8"))
         groups: Dict[Tuple[int, int], list] = {}
@@ -286,6 +298,10 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                     clip_far=inp.clipdepth_far,
                     clip_near=inp.clipdepth_near).numpy()
 
+        if inp.gen_inpainted_mesh:
+            inpaint_imgs.append(img)
+            inpaint_depths.append(img_output)
+
         if inp.do_output_depth:
             img_depth = img_output
             if inp.output_depth_invert:
@@ -334,6 +350,12 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 custom_depthmap=inputdepthmaps[count] is not None,
                 occlude=inp.simple_mesh_occlude,
                 spherical=inp.simple_mesh_spherical)
+
+    if inp.gen_inpainted_mesh and inpaint_imgs:
+        from depthmap_tpu_torch.pipeline.inpaint_video import run_3dphoto
+        yield 0, "inpainted_mesh", run_3dphoto(
+            dev, inpaint_imgs, inpaint_depths, inputnames, outpath or ".",
+            inp.gen_inpainted_mesh_demos, 1, "mp4")
 
     if not bool(ops.get("keepmodels", True)):
         cache.release()

@@ -232,6 +232,46 @@ class DepthPredictor:
         return self._raw_batch(imgs01, net_w, net_h,
                                resize_mode).cpu().numpy()
 
+    def predict_batch_stream(self, stacks, net_w: Optional[int] = None,
+                             net_h: Optional[int] = None,
+                             resize_mode: Optional[str] = None):
+        """``predict_batch`` over an iterable of same-shape (N, H, W, 3)
+        stacks, yielding each chunk's (N, H, W) f32 maps in order, with one
+        chunk in flight: on the card, chunk i + 1's forward is launched
+        before chunk i is copied to pinned memory (on a side stream that
+        waits on chunk i's event) and waited for.  A host pipeline
+        (Marigold) goes chunk by chunk."""
+        net_w, net_h = self._default_size(net_w, net_h)
+        if self.bundle.host_pipeline or self.device.type != "cuda":
+            for stack in stacks:
+                yield self.predict_batch(stack, net_w, net_h, resize_mode)
+            return
+        side = torch.cuda.Stream(self.device)
+        pending = None   # (raw maps on the card, their forward's event)
+        for stack in stacks:
+            raw = self._raw_batch(stack, net_w, net_h, resize_mode)
+            done = torch.cuda.Event()
+            done.record()
+            if pending is not None:
+                yield self._download(pending, side)
+            pending = (raw, done)
+        if pending is not None:
+            yield self._download(pending, side)
+
+    @staticmethod
+    def _download(pending, side) -> np.ndarray:
+        """Copy a chunk's maps to pinned memory on ``side`` once its
+        forward's event fires, and wait for the copy."""
+        raw, done = pending
+        host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            side.wait_event(done)
+            host.copy_(raw, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        copied.synchronize()
+        return host.numpy()
+
     def finalized_batch(self, imgs01, net_w: int, net_h: int, *,
                         clip: bool = False, clip_mode: str = "Range",
                         clip_far: float = 0.0, clip_near: float = 1.0,

@@ -23,7 +23,12 @@ the flip-TTA batch), and the conv nets midas_v21 / midas_v21_small and
 LeReS (no K1), hold to 1e-3 of the CPU map's range, the bound
 chip_smoke.py holds the whole path to.  The normal
 map on the card holds to its CPU twin within |d| <= 1 on <= 0.1% of the
-bytes.
+bytes.  Video mode and the 3D photo (plain torch on the card, no kernel
+of their own beyond K1 / K2): ``predict_batch_stream`` equals
+``predict_batch`` chunk by chunk; the weighted median and the renderer's
+frames (triangles and splat, tests/test_render.py's scene) equal the
+CPU's; the three full-width inpainting nets hold to 1e-4 of the CPU
+output's range (f32, TF32 off).
 """
 from __future__ import annotations
 
@@ -103,6 +108,12 @@ K1_CASES.update({
     for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
     for kind in ("self", "cross")
     for h, n in ((5, 6912), (10, 1728), (20, 432), (20, 108))})
+# DA v2 Base at net 448 in video mode's pass 1 (1080p frames, chunks of 8
+# and a tail of 4: N = 1825) and the 3D photo's 4:3 image (N = 1377)
+K1_CASES.update({
+    "bf16_none_h12_b8_1825": (torch.bfloat16, 8, 12, 1825, 1825, None, None),
+    "bf16_none_h12_b4_1825": (torch.bfloat16, 4, 12, 1825, 1825, None, None),
+    "bf16_none_h12_1377": (torch.bfloat16, 1, 12, 1377, 1377, None, None)})
 
 
 def _fault_errors(q, k, v, bias, scale, want):
@@ -619,3 +630,126 @@ def test_small_marigold_card_matches_cpu():
     assert rng_ > 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
                                atol=1e-3 * rng_)
+
+
+# -- video mode and the 3D photo: plain torch on the card, held to the CPU --
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.cuda
+def test_predict_batch_stream_card_equals_predict_batch():
+    """Video mode's pass 1 on the card: the stream (one chunk in flight,
+    pinned copies on a side stream) gives predict_batch's maps chunk by
+    chunk; a small Depth Anything v2, bf16, chunks of 3 and a tail of 1."""
+    _needs_card()
+    import dataclasses
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.depth_anything import DepthAnything
+    from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    small = DepthAnything(DinoV2Backbone(embed_dim=128, depth=4, num_heads=2,
+                                         hooks=(0, 1, 2, 3),
+                                         train_img_size=56),
+                          features=32, out_channels=(16, 32, 64, 64))
+    init_random_(small, seed=4)
+    with torch.device("meta"):
+        bundle = build_model(13)
+    pred = DepthPredictor(13, state_dict=small.state_dict(), device="cuda",
+                          bundle=dataclasses.replace(bundle, module=small))
+    rng = np.random.default_rng(6)
+    stacks = [rng.random((n, 60, 84, 3)).astype(np.float32) for n in (3, 1)]
+    before = fa.flash_attention_cuda.launches
+    got = list(pred.predict_batch_stream(iter(stacks), 70, 70))
+    assert fa.flash_attention_cuda.launches - before == 8
+    for g, s in zip(got, stacks):
+        np.testing.assert_array_equal(g, pred.predict_batch(s, 70, 70))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 5])
+def test_weighted_median_card_equals_cpu(window):
+    _needs_card()
+    from depthmap_tpu_torch.pipeline import inpaint_mesh as im
+    rng = np.random.default_rng(window)
+    depth = np.round(1.0 / np.maximum(rng.random((96, 128)) * 3, 0.05), 1)
+    depth[20:60, 30:90] *= 3
+    depth = depth.astype(np.float32)
+    disc = im.vis_depth_discontinuity(depth, 0.04)
+    out = {dev: im.weighted_median_filter(
+        torch.from_numpy(depth).to(dev), torch.from_numpy(disc).to(dev),
+        window).cpu().numpy() for dev in ("cuda", "cpu")}
+    assert (out["cpu"] != depth).sum() > 100
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+@pytest.fixture(scope="module")
+def inpaint_ckpt(tmp_path_factory):
+    from depthmap_tpu_torch.models.weights import \
+        save_random_inpaint_checkpoints
+    d = str(tmp_path_factory.mktemp("3dphoto"))
+    save_random_inpaint_checkpoints(d, seed=7)
+    return d
+
+
+@pytest.mark.cuda
+def test_inpaint_nets_card_match_cpu(inpaint_ckpt):
+    """The three full-width nets on a 128 x 128 crop, f32 with TF32 off:
+    within 1e-4 of the CPU output's range."""
+    _needs_card()
+    from depthmap_tpu_torch.pipeline import inpaint_mesh as im
+    rng = np.random.default_rng(8)
+    rgb = rng.random((128, 128, 3)).astype(np.float32)
+    depth = (3 + 5 * rng.random((128, 128))).astype(np.float32)
+    edge = (rng.random((128, 128)) > 0.9).astype(np.float32)
+    ctx = (rng.random((128, 128)) > 0.4).astype(np.float32)
+    mask = (1 - ctx) * (rng.random((128, 128)) > 0.3).astype(np.float32)
+    args = {"edge": (rgb, 1 / depth, edge, ctx, mask),
+            "depth": (depth, edge, ctx, mask),
+            "color": (rgb, edge, ctx, mask)}
+    nets = {dev: im.build_inpaint_callables(inpaint_ckpt, device=dev)
+            for dev in ("cuda", "cpu")}
+    before = dict(im.net_calls)
+    for name, a in args.items():
+        want = nets["cpu"][name](*a)
+        got = nets["cuda"][name](*a)
+        span = float(np.ptp(want))
+        assert span > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * span)
+    assert all(im.net_calls[(n, "cuda")] - before.get((n, "cuda"), 0)
+               == 1 for n in args)
+
+
+@pytest.mark.cuda
+def test_raster_card_equals_cpu(inpaint_ckpt):
+    """The renderer on tests/test_render.py's nested-occlusion scene (its
+    LDI with the nets), 3 cameras, triangles and splat: equal frames (each
+    op is one IEEE f32 operation, the winner rule is order-free)."""
+    _needs_card()
+    from depthmap_tpu_torch.pipeline import inpaint_mesh as im
+    from depthmap_tpu_torch.pipeline.render import MeshRenderer
+    H, W = 48, 64
+    rng = np.random.default_rng(0)
+    depth = np.full((H, W), 10.0)
+    depth[12:36, 16:48] = 5.0
+    depth[18:30, 24:40] = 2.0
+    img = (rng.random((H, W, 3)) * 255).astype(np.uint8)
+    int_mtx = np.array([[max(H, W), 0, W / 2.], [0, max(H, W), H / 2.],
+                        [0, 0, 1]])
+    nets = im.build_inpaint_callables(inpaint_ckpt, device="cpu")
+    verts, colors, faces, _ = im.build_ldi(
+        img, depth, int_mtx, {"depth_threshold": 0.04,
+                              "background_thickness": 70}, nets)
+    fov = max(2 * np.arctan(0.5 * W / (int_mtx[0, 0] * W)),
+              2 * np.arctan(0.5 * H / (int_mtx[1, 1] * H)))
+    for method in ("triangles", "splat"):
+        for cam in ((0.0, 0.0, 0.0), (0.02, -0.015, -0.03),
+                    (-0.03, 0.02, 0.05)):
+            frames = {dev: MeshRenderer(verts, colors, faces, fov, 64,
+                                        method=method, device=dev)
+                      .render_device(np.asarray(cam)).cpu().numpy()
+                      for dev in ("cuda", "cpu")}
+            np.testing.assert_array_equal(frames["cuda"], frames["cpu"])

@@ -177,17 +177,31 @@ def test_gpu_device_needs_cuda(rng):
                                           TOptions(model_type=1)))
 
 
-def test_unported_options_raise(rng):
-    """Background removal and the inpainted mesh raise, naming their
-    ROADMAP items; Boost and Marigold (type 10) are ported: Boost on a
-    custom depth map makes no prediction, as in the JAX funnel, and
-    build_model(10) builds the pipeline (on the meta device here)."""
+def test_unported_options_raise(rng, tmp_path, monkeypatch):
+    """Background removal raises, naming its ROADMAP item; the inpainted
+    mesh is ported (gone from _NOT_PORTED): with seeded checkpoints under
+    ./models/3dphoto the funnel yields the OBJ's path after the depth.
+    Boost and Marigold (type 10) are ported: Boost on a custom depth map
+    makes no prediction, as in the JAX funnel, and build_model(10) builds
+    the pipeline (on the meta device here)."""
+    from depthmap_tpu_torch.models.weights import \
+        save_random_inpaint_checkpoints
     imgs = _images(rng, [(16, 16)])
     dm = [rng.random((16, 16))]
-    for opt in ("gen_rembg", "gen_inpainted_mesh"):
-        inp = TOptions(compute_device="CPU", **{opt: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
+    inp = TOptions(compute_device="CPU", gen_rembg=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
+    assert set(tcore._NOT_PORTED) == {"gen_rembg"}
+    save_random_inpaint_checkpoints(str(tmp_path / "models" / "3dphoto"))
+    monkeypatch.chdir(tmp_path)
+    out = list(tcore.core_generation_funnel(
+        str(tmp_path / "out"), imgs, dm, ["img.png"],
+        TOptions(compute_device="CPU", gen_inpainted_mesh=True)))
+    assert [(i, t) for i, t, _ in out] == [(0, "depth"),
+                                           (0, "inpainted_mesh")]
+    assert out[1][2] == str(tmp_path / "out" / "img-0000.obj")
+    with open(out[1][2]) as f:
+        assert sum(1 for line in f if line.startswith("v ")) >= 16 * 16
     assert "boost" not in tcore._NOT_PORTED
     plain = list(tcore.core_generation_funnel(
         None, imgs, dm, None, TOptions(compute_device="CPU")))
