@@ -9,10 +9,13 @@ and prints no result):
   0. environment: CUDA required; torch / CUDA versions, the card's name
      and power limit from nvidia-smi, whether PIL and cv2 import;
   1. build: nvcc builds both hand-written kernels from csrc/ (in
-     parallel); ptxas's register / spill report of each kernel; the count
-     of HGMMA (wgmma) instructions in K1's SASS, which must not be 0;
+     parallel); ptxas's register / spill report of each kernel and K1's
+     shared memory per body; per kernel of K1's SASS its HGMMA (wgmma)
+     instructions: the bf16 kernel must hold some, the f32 kernel some on
+     TF32 operands and at most K1_F32_MAX_FFMA FFMA (no product on the
+     CUDA cores);
   2. K1 (flash attention) against its plain version at the model paths'
-     shapes, bf16 (tensor-core body) and f32 (CUDA-core body), with a
+     shapes, bf16 and f32 (split TF32: three TF32 passes a product), with a
      padded-row bias (BEiT) and without (Depth Anything: 12 and 16 heads,
      N up to 10765; the MiDaS 3.0 ViTs at N = 577, where the last kv tile
      holds one key, and 1009; ZoeDepth's BEiT-L 384 core under flip TTA,
@@ -31,11 +34,13 @@ and prints no result):
      (K1_Q_SCALE); per case the kernel's time (CUDA events over 10 calls;
      and its device time from torch.profiler, which leaves out the host's
      launch gaps that the events hold at the short shapes), the plain
-     version's, SDPA's on the same tensors, both ways (the efficient
-     backend, and the flash backend where it runs: bf16, no mask; the
-     port never calls either), the bound and the share of it, and the
-     error of three planted faults (a kv tile skipped, the output
-     scaled), each of which must exceed the bound;
+     version's, SDPA's on the same tensors, both ways (the efficient,
+     flash and cuDNN backends, each where it takes the case, "refused"
+     where not; the port never calls any), the bound and the share of
+     it (f32: also the split-TF32 bound), and the error of three planted
+     faults (a kv tile skipped, the output scaled), each of which must
+     exceed the bound; f32 cases must also hold K1_F32_ACCURACY, which one
+     TF32 pass (a fourth fault) must break;
   3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
      4 cases on a random depth map (sharp +24 and -48 px, soft -24 and +48;
      the timed one: sharp, +24 px) and one timed case on a smooth map,
@@ -104,7 +109,8 @@ and prints no result):
      bf16 (DEPTHMAP_MARIGOLD_DTYPE: bf16 weights, the VAE in bf16, the
      UNet in f32 past its first time-embedding add, the attention's
      dtype logged), one warm and one timed run each: K1 32
-     times a UNet forward, 384 an image; s per image, peak memory; then the
+     times a UNet forward, 384 an image, all in its f32 body (counted by
+     dtype); s per image, peak memory; then the
      full-width nets at processing_res 64, ensemble 2, 2 steps, the same
      noise, f32, card against CPU (the members before the ensemble).
  15. video mode through gen_video: GenerationOptions() (DA v2 Base, net
@@ -132,8 +138,10 @@ one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
 path's device time and K1's / K2's share of it (K2: both stages).  The
 last lines: the card's name and power limit, a JSON line with each
 kernel's numbers (K1's launches: the sum over the model paths, each
-path's count beside it; K2's: the sweeps of phase 4 and of phase 15's
-pass 2, each beside it), and {"ok": true, "device": {...}}.
+path's count beside it, the f32 body's on the Marigold paths, and the f32
+body's main case, Marigold's (5, 5, 6912), with SDPA efficient's time and
+both bounds; K2's: the sweeps of phase 4 and of phase 15's pass 2, each
+beside it), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -152,6 +160,21 @@ from concurrent.futures import ThreadPoolExecutor
 # one rounding of each; 2e-2 is about two output ulps at the largest
 # outputs of these inputs.
 K1_BOUND = {"float32": 5e-3, "bfloat16": 2e-2}
+# f32 cases must also agree with the plain version to f32 accuracy: the
+# split-TF32 body errs 1-4e-6 at these inputs, as the f32 plain version
+# does against f64, and one TF32 pass (10 mantissa bits) 1e-3 or more,
+# which the 5e-3 bound would let pass.  The tf32_one_pass fault holds the
+# line.
+K1_F32_ACCURACY = 5e-5
+# the f32 body's main case: Marigold's largest self-attention
+K1_F32_MAIN = "f32_b5_h5_n6912_self"
+# K1's f32 kernel in SASS: at most this many FFMA, 5 for each of the 32
+# scores a thread holds per tile.  The softmax needs two a score (the
+# scale or bias, the move to log2 space), O = O.alpha + tile one an output
+# element (32 a thread), the row sums and the epilogue's divisions a few
+# more.  A product on the CUDA cores needs D = 64 a score (the CUDA-core
+# body this one replaced held 599 FFMA in SASS).
+K1_F32_MAX_FFMA = 160
 # K1's inputs: q ~ 4 N(0, 1), k ~ N(0, 1), v ~ N(0, 1) / 4.  The logits
 # (D = 64, scale 1/8) have std 4, so the softmax is peaked and an output
 # is a mix of a few values of v (at most ~1.4), far above the bound where
@@ -182,9 +205,9 @@ MAIN_RUNS = 2
 # products summed over up to 3000 terms in another order
 BOOST_CHAIN_TOL = 2e-5
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): memory
-# bytes/s, bf16 tensor-core and f32 CUDA-core flop/s
+# bytes/s, bf16 and TF32 tensor-core and f32 CUDA-core flop/s
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 
 def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
@@ -277,19 +300,61 @@ def phase_build():
         per_kernel={k: round(v, 2) for k, v in
                     cuda_build.build_seconds.items()})
     for name, text in cuda_build.build_logs.items():
+        fn = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("1-ptxas", lib=name, info=repr(line.strip()))
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log("1-ptxas", lib=name, kernel=short_name(fn),
+                    info=repr(line.strip()))
+    log("1-smem", lib="flash_attention",
+        f32_bytes=libs[0].flash_attention_smem_bytes(0),
+        bf16_bytes=libs[0].flash_attention_smem_bytes(1))
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
                              "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", libs[0]._name],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    hgmma = sass.count("HGMMA")
-    log("1-sass", lib="flash_attention", HGMMA=hgmma)
-    if hgmma == 0:
-        raise AssertionError("no HGMMA instruction in K1's SASS: the bf16 "
-                             "body does not run on the tensor cores")
+    counts = k1_sass_counts(sass)
+    for kernel, c in counts.items():
+        log("1-sass", lib="flash_attention", kernel=kernel, **c)
+    bf16, f32 = counts.get("flash_fwd_bf16"), counts.get("flash_fwd_f32")
+    if not bf16 or bf16["HGMMA"] == 0:
+        raise AssertionError("no HGMMA instruction in K1's bf16 kernel: "
+                             "it does not run on the tensor cores")
+    if not f32 or f32["HGMMA_TF32"] == 0:
+        raise AssertionError("no TF32 HGMMA instruction in K1's f32 "
+                             "kernel: it does not run on the tensor cores")
+    if f32["FFMA"] > K1_F32_MAX_FFMA:
+        raise AssertionError(f"K1's f32 kernel holds {f32['FFMA']} FFMA "
+                             f"(> {K1_F32_MAX_FFMA}): a product on the "
+                             "CUDA cores")
+
+
+def short_name(mangled):
+    """The kernel's name inside a mangled symbol (the csrc kernels live in
+    an anonymous namespace)."""
+    for name in ("flash_fwd_bf16", "flash_fwd_f32", "split_kv_f32",
+                 "polylines_sort", "polylines_sweep"):
+        if mangled and name in mangled:
+            return name
+    return mangled
+
+
+def k1_sass_counts(sass: str):
+    """Per kernel of K1's library: its HGMMA instructions, those on TF32
+    operands, its FFMA, and its first HGMMA line."""
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = short_name(part.split(None, 1)[0])
+        lines = part.splitlines()
+        hgmma = [ln.strip() for ln in lines if "HGMMA" in ln]
+        counts[name] = {
+            "HGMMA": len(hgmma),
+            "HGMMA_TF32": sum("TF32" in ln for ln in hgmma),
+            "FFMA": sum(" FFMA" in ln for ln in lines),
+            "first_HGMMA": repr(hgmma[0][:96]) if hgmma else None}
+    return counts
 
 
 K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
@@ -364,11 +429,15 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
 
 def k1_bound(b, h, n, nk, bias_batch, dtype):
     """K1's bound: q, k, v, out and the bias's N x Nk entries moved once;
-    4.B.H.N.Nk.D flops."""
+    4.B.H.N.Nk.D flops at the dtype's peak.  For f32 also the split-TF32
+    bound (three TF32 passes a product, the work the f32 body does on the
+    tensor cores): ((ms, basis) of the dtype, that or None)."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (b * h * (2 * n + 2 * nk) * 64
                      + (bias_batch or 0) * h * n * nk)
-    return bound(nbytes, 4.0 * b * h * n * nk * 64, dtype)
+    flops = 4.0 * b * h * n * nk * 64
+    split = bound(nbytes, 3 * flops, "tf32") if dtype == "float32" else None
+    return bound(nbytes, flops, dtype), split
 
 
 def k1_fault_errors(q, k, v, bias, want):
@@ -376,7 +445,10 @@ def k1_fault_errors(q, k, v, bias, want):
     ``want`` of the answer a kernel with each fault would give, made by the
     plain version on the same inputs.  Faults: the last kv tile of 64 keys
     skipped (the ragged one where Nk % 64 != 0), the first one skipped, the
-    output scaled by 0.8.  Each must exceed the case's bound."""
+    output scaled by 0.8, each of which must exceed the case's bound; for
+    f32, one TF32 pass (the plain version on q, k, v rounded to TF32),
+    which must exceed K1_F32_ACCURACY."""
+    import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
     nk = k.shape[2]
 
@@ -388,18 +460,52 @@ def k1_fault_errors(q, k, v, bias, want):
         faults["last_kv_tile"] = lambda: without(slice(0, nk - (nk % 64
                                                                 or 64)))
         faults["first_kv_tile"] = lambda: without(slice(64, nk))
+    if q.dtype == torch.float32:
+        r = fa.round_to_tf32
+        faults["tf32_one_pass"] = lambda: fa.flash_attention_plain(
+            r(q), r(k), r(v), bias)
     return {name: (f().float() - want.float()).abs().max().item()
             for name, f in faults.items()}
 
 
-def phase_k1():
-    import torch
+def sdpa_times(q, k, v, bias):
+    """SDPA on the same tensors, the port's yardsticks (it never calls
+    them): {backend: (ms, device ms or None where the profiler saw none of
+    its kernels) or "refused"}.  The efficient backend takes the
+    padded-row mask and f32; the flash backend takes no mask and no f32;
+    cuDNN's takes what its build accepts."""
+    import warnings
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for lib, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                         ("flash", SDPBackend.FLASH_ATTENTION),
+                         ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        def sdpa_call():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=bias)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the reasons it refuses
+                sdpa_call()
+        except RuntimeError:
+            out[lib] = "refused"
+            continue
+        try:
+            dev = device_ms(sdpa_call, 5)
+        except AssertionError:   # the profiler saw none of its kernels
+            dev = None
+        out[lib] = (cuda_ms(sdpa_call, 10), dev)
+    return out
+
+
+def phase_k1():
+    import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(1)
     worst = 0.0
-    main = None
+    main = f32_main = None
     for name, dts, b, h, n, bb, *rest in K1_CASES:
         nk = rest[0] if rest else n
         dt = getattr(torch, dts)
@@ -414,6 +520,7 @@ def phase_k1():
         want = fa.flash_attention_plain(q, k, v, bias)
         err = (got.float() - want.float()).abs().max().item()
         tol = K1_BOUND[dts]
+        acc = K1_F32_ACCURACY if dts == "float32" else tol
         faults = k1_fault_errors(q, k, v, bias, want)
         del want
         torch.cuda.empty_cache()
@@ -423,43 +530,52 @@ def phase_k1():
         dev_ms = device_ms(k1_call, 5)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
                            3)
-        # SDPA on the same tensors: the efficient backend takes the
-        # padded-row mask; the flash backend takes no mask and no f32
-        library, library_dev = {}, {}
-        backends = [("efficient", SDPBackend.EFFICIENT_ATTENTION)]
-        if bias is None and dt == torch.bfloat16:
-            backends.append(("flash", SDPBackend.FLASH_ATTENTION))
-        for lib, backend in backends:
-            def sdpa_call():
-                with sdpa_kernel(backend):
-                    return F.scaled_dot_product_attention(q, k, v,
-                                                          attn_mask=bias)
-            library[lib] = cuda_ms(sdpa_call, 10)
-            library_dev[lib] = device_ms(sdpa_call, 5)
-        bound_ms, basis = k1_bound(b, h, n, nk, bb, dts)
+        library = sdpa_times(q, k, v, bias)
+        (bound_ms, basis), split = k1_bound(b, h, n, nk, bb, dts)
+        lib_kw = {}
+        for lib, t in library.items():
+            if t == "refused":
+                lib_kw[f"sdpa_{lib}"] = t
+            else:
+                lib_kw[f"sdpa_{lib}_ms"] = f"{t[0]:.4f}"
+                lib_kw[f"sdpa_{lib}_device_ms"] = \
+                    "not_seen" if t[1] is None else f"{t[1]:.4f}"
+        split_kw = {} if split is None else dict(
+            split_tf32_bound_us=f"{split[0] * 1e3:.1f}",
+            split_tf32_bound_by=split[1],
+            device_share_of_split_tf32_bound=f"{split[0] / dev_ms:.3f}")
         log("2-k1", case=name, max_abs_err=f"{err:.3e}", tol=tol,
+            **({"f32_accuracy": acc} if dts == "float32" else {}),
             ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}",
-            **{f"sdpa_{lib}_ms": f"{t:.4f}" for lib, t in library.items()},
-            **{f"sdpa_{lib}_device_ms": f"{t:.4f}"
-               for lib, t in library_dev.items()},
+            plain_ms=f"{plain_ms:.4f}", **lib_kw,
             bound_us=f"{bound_ms * 1e3:.1f}", bound_by=basis,
             share_of_bound=f"{bound_ms / ms:.3f}",
-            device_share_of_bound=f"{bound_ms / dev_ms:.3f}",
+            device_share_of_bound=f"{bound_ms / dev_ms:.3f}", **split_kw,
             **{f"fault_{f}_err": f"{e:.3e}" for f, e in faults.items()})
-        if not err <= tol:
-            raise AssertionError(f"K1 {name}: max abs err {err} > {tol}")
+        if not err <= min(tol, acc):
+            raise AssertionError(f"K1 {name}: max abs err {err} > "
+                                 f"{min(tol, acc)}")
+        tf32 = faults.pop("tf32_one_pass", None)
         if not min(faults.values()) > tol:
             raise AssertionError(f"K1 {name}: a faulty kernel would pass "
                                  f"the bound {tol}: {faults}")
+        if tf32 is not None and not tf32 > acc:
+            raise AssertionError(f"K1 {name}: one TF32 pass ({tf32:.3e}) "
+                                 f"would pass the f32 bound {acc}")
         worst = max(worst, err)
+        eff = library["efficient"]
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=eff[0], library_device_ms=eff[1],
+                   bound_ms=bound_ms, bound_by=basis)
         if main is None:
-            main = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                        library_ms=library["efficient"], bound_ms=bound_ms,
-                        bound_by=basis)
+            main = row
+        if name == K1_F32_MAIN:
+            f32_main = dict(row, case=name, max_abs_err=err,
+                            cuda_core_bound_ms=bound_ms,
+                            bound_ms=split[0], bound_by=split[1])
         del q, k, v, bias, got
         torch.cuda.empty_cache()
-    return worst, main
+    return worst, main, f32_main
 
 
 def k2_stages(img, nd, div, sharp):
@@ -703,7 +819,7 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
                     - {None})
 
     for run in range(runs):
-        fa.flash_attention_cuda.launches = 0
+        fa.reset_launches()
         pl._sort_cuda.launches = 0
         pl._sweep_cuda.launches = 0
         results, last = {}, {}
@@ -783,7 +899,7 @@ def drive_mesh(phase, inp, image, cache, blocks):
                                    gen_normalmap=False, gen_heatmap=False,
                                    gen_stereo=False, gen_simple_mesh=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fa.flash_attention_cuda.launches = 0
+        fa.reset_launches()
         t0 = time.perf_counter()
         out = list(core_generation_funnel(tmp, [image], None, None, mesh_inp,
                                           predictor_cache=cache))
@@ -1172,7 +1288,7 @@ def drive_boost(phase, name, images, profile=False):
         h, w = image.shape[:2]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention_cuda.launches = 0
+        fa.reset_launches()
         t0 = time.perf_counter()
         out = list(core_generation_funnel(None, [image], None, None, inp,
                                           ops, cache))
@@ -1287,8 +1403,8 @@ def phase_boost_numerics():
 def drive_marigold(phase, image, state_dict, profile=False):
     """Marigold through the funnel at res 768, ensemble 5, 12 steps, in
     the dtype DEPTHMAP_MARIGOLD_DTYPE names: a warm run, then a timed one
-    with the K1 count set to 0 just before it: 32 launches a UNet forward,
-    384 an image."""
+    with the K1 counts set to 0 just before it: 32 launches a UNet forward,
+    384 an image, all in K1's f32 body."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -1319,19 +1435,20 @@ def drive_marigold(phase, image, state_dict, profile=False):
         .transformer_blocks[0].attn1.register_forward_hook(
             lambda m, i, o: attn_dtypes.add(str(o.dtype)))
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_cuda.launches = 0
+    fa.reset_launches()
     t0 = time.perf_counter()
     out = list(core_generation_funnel(None, [image], None, None, inp, ops,
                                       cache))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k1 = fa.flash_attention_cuda.launches
+    k1_f32 = fa.flash_attention_cuda.launches_by_dtype["float32"]
     hook.remove()
     d = out[0][2]
     log(phase, size=f"{h}x{w}", res=768, ensemble=5, steps=12,
         dtype=str(pred.compute_dtype), attention_dtype=sorted(attn_dtypes),
         s_warm=f"{warm_s:.3f}", s_per_image=f"{seconds:.3f}",
-        k1_launches=k1,
+        k1_launches=k1, k1_f32_launches=k1_f32,
         max_memory_allocated_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
     if d.dtype != np.uint16 or d.shape != (h, w) or \
             int(d.max()) - int(d.min()) <= 0:
@@ -1340,9 +1457,10 @@ def drive_marigold(phase, image, state_dict, profile=False):
         raise AssertionError(f"{phase}: the UNet's attention ran in "
                              f"{attn_dtypes}, not in f32 as the JAX "
                              "package's promotion runs it")
-    if k1 != 32 * 12:
-        raise AssertionError(f"{phase}: K1 launched {k1} times, expected "
-                             "384 (32 a UNet forward, 12 steps)")
+    if k1 != 32 * 12 or k1_f32 != k1:
+        raise AssertionError(f"{phase}: K1 launched {k1} times, {k1_f32} "
+                             "in its f32 body; expected 384 (32 a UNet "
+                             "forward, 12 steps), all f32")
     if profile:
         profile_paths(cache, inp, [(f"{phase}_{pred.compute_dtype}",
                                     [image])], ops)
@@ -1350,7 +1468,7 @@ def drive_marigold(phase, image, state_dict, profile=False):
     del pred, cache, Cache, bundle
     gc.collect()    # the class above sits in a cycle (super's cell)
     torch.cuda.empty_cache()
-    return k1
+    return k1, k1_f32
 
 
 def phase_marigold(profile: bool = False):
@@ -1365,13 +1483,14 @@ def phase_marigold(profile: bool = False):
         params_M=f"{sum(t.numel() for t in sd.values()) / 1e6:.1f}",
         init_s=f"{time.perf_counter() - t0:.2f}")
     image = _test_images(17, [(768, 1024)])[0]
-    launches = {}
+    launches, launches_f32 = {}, {}
     for dtype in ("float32", "bfloat16"):
         os.environ["DEPTHMAP_MARIGOLD_DTYPE"] = dtype
-        launches[dtype] = drive_marigold("14-marigold", image, sd, profile)
+        launches[dtype], launches_f32[dtype] = drive_marigold(
+            "14-marigold", image, sd, profile)
     os.environ.pop("DEPTHMAP_MARIGOLD_DTYPE")
     phase_marigold_numerics(sd)
-    return launches
+    return launches, launches_f32
 
 
 def phase_marigold_numerics(sd):
@@ -1463,7 +1582,7 @@ def _counts():
 def _zero_counts():
     from depthmap_tpu_torch.ops import flash_attention as fa
     from depthmap_tpu_torch.ops import polylines as pl
-    fa.flash_attention_cuda.launches = 0
+    fa.reset_launches()
     pl._sort_cuda.launches = 0
     pl._sweep_cuda.launches = 0
 
@@ -1820,7 +1939,7 @@ def main() -> int:
         return out
     smi = timed("0", phase_environment)
     timed("1", phase_build)
-    k1_err, k1 = timed("2", phase_k1)
+    k1_err, k1, k1_f32 = timed("2", phase_k1)
     k2_err, k2 = timed("3", phase_k2)
     k1_by_path = {}
     k1_by_path["dpt_beit_large_512"], k2_launches = timed(
@@ -1836,8 +1955,11 @@ def main() -> int:
     timed("11", phase_normalmap)
     k1_by_path["boost_dpt_beit_large_512"] = timed("13", phase_boost,
                                                    profile)
-    k1_by_path.update({f"marigold_{dt}": n for dt, n in timed(
-        "14", phase_marigold, profile).items()})
+    marigold, marigold_f32 = timed("14", phase_marigold, profile)
+    k1_by_path.update({f"marigold_{dt}": n for dt, n in marigold.items()})
+    # the f32 body's launches, read on the Marigold paths (the other model
+    # paths run K1 in bf16)
+    k1_f32_by_path = {f"marigold_{dt}": n for dt, n in marigold_f32.items()}
     k1_by_path["video_pass1_da_v2_base"], k2_video = timed(
         "15", phase_video, profile)
     k1_by_path["3dphoto_da_v2_base"] = timed("16", phase_3dphoto, profile)
@@ -1858,7 +1980,8 @@ def main() -> int:
         # in its own last timed run), per path beside it
         row("flash_attention", K1_SOURCE, K1_REPLACES,
             sum(k1_by_path.values()), k1_err, k1,
-            device_ms=k1["device_ms"], launches_by_path=k1_by_path),
+            device_ms=k1["device_ms"], launches_by_path=k1_by_path,
+            launches_f32_by_path=k1_f32_by_path, f32_main=k1_f32),
         # K2's launches: its sweep's, one per eye of the BEiT path's and
         # of video mode's polylines stereo (each eye also launched one
         # sort, checked there), per path beside it

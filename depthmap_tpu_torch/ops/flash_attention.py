@@ -5,7 +5,11 @@
 depthmap_tpu/ops/flash_attention.py:168) for CUDA tensors, and runs
 ``flash_attention_plain`` for CPU tensors.  A CUDA tensor the kernel does
 not take raises; nothing falls back to the plain version on the card.
-The kernel has a tensor-core body for bf16 and a CUDA-core body for f32.
+Both of the kernel's bodies run on the tensor cores: bf16 as bf16, f32 in
+split TF32 (each product as three TF32 passes, hi.hi + hi.lo + lo.hi, at
+f32 accuracy), whose split K and V^T go to a scratch the wrapper
+allocates.  ``round_to_tf32`` restates the kernel's rounding in plain
+torch, for the checks that tell f32 from one TF32 pass.
 
 The bias layout the kernel reads: rows padded to a multiple of
 ``BIAS_ROW_ALIGN`` elements (a 16-byte-aligned row for TMA, and one that
@@ -99,14 +103,27 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor] = None,
     return (acc * inv).to(q.dtype)
 
 
+def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) on its bits: to nearest,
+    ties away from zero, as the kernel's ``cvt.rna.tf32.f32``; inf and nan
+    pass through."""
+    x = x.float()
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
 def _lib():
     lib = cuda_build.load("flash_attention")
     if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.flash_attention_forward.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float,
-            ci, vp]
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            ctypes.c_float, ci, vp]
         lib.flash_attention_forward.restype = ci
+        lib.flash_attention_workspace_bytes.argtypes = [ci, ci, ci, ci]
+        lib.flash_attention_workspace_bytes.restype = sz
+        lib.flash_attention_smem_bytes.argtypes = [ci]
+        lib.flash_attention_smem_bytes.restype = sz
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -145,21 +162,35 @@ def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
         scale = d ** -0.5
     out = torch.empty_like(q)
     lib = _lib()
+    code = _DTYPES[q.dtype]
+    ws_bytes = lib.flash_attention_workspace_bytes(b, h, nk, code)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32,
+                     device=q.device) if ws_bytes else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
             b, h, n, nk, d, bias.shape[0] if bias is not None else 0,
-            ldb, float(scale), _DTYPES[q.dtype], stream)
+            ldb, float(scale), code, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+def reset_launches() -> None:
+    """Set K1's launch counts, the total and each dtype's, to 0."""
+    flash_attention_cuda.launches = 0
+    for dt in flash_attention_cuda.launches_by_dtype:
+        flash_attention_cuda.launches_by_dtype[dt] = 0
 
 
 def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,

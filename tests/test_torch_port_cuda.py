@@ -8,14 +8,18 @@ the port's dependencies:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda
 
 K1 bounds (max abs error against the plain version, which computes in f32;
-the bf16 cases run the tensor-core body, the f32 ones the CUDA-core body):
-f32 5e-3, the bound the JAX package holds its TPU kernel to; bf16 2e-2,
+the bf16 cases run the bf16 body, the f32 ones the split-TF32 body, both
+on the tensor cores): f32 5e-3, the bound the JAX package holds its TPU
+kernel to, and F32_ACCURACY (5e-5), f32 accuracy, which one TF32 pass
+(1e-3 or more here) breaks; bf16 2e-2,
 about two bf16 ulps of the largest outputs (the output and p are rounded
 to bf16, and a different f32 summation order can flip either rounding).
 q is drawn 4x and v 1/4x N(0, 1): the logits have std 4, so the softmax
 is peaked and the outputs (up to ~1.4) stand far above the bound where a
 kernel errs; each case also checks that the answers of planted faults (a
-kv tile skipped, the output scaled by 0.8) break the bound.
+kv tile skipped, the output scaled by 0.8) break the bound, and for f32
+that one TF32 pass (the plain version on q, k, v rounded to TF32) breaks
+F32_ACCURACY.
 K2 and the warp stereo fills are byte-exact.  Small Depth Anything, ViT
 and hybrid DPT forwards in f32 on the card (K1 bias-free, TF32 off), small
 ZoeDepth n / k / nk forwards (a BEiT core: K1 with a bias shared across
@@ -62,6 +66,11 @@ K1_CASES = {
     "bf16_masked_row": (torch.bfloat16, 2, 16, 130, 130, "shared", None),
     "bf16_scale": (torch.bfloat16, 2, 16, 200, 200, "batched", 0.3),
     "f32_batched_130": (torch.float32, 2, 16, 130, 130, "batched", None),
+    "f32_batched_65": (torch.float32, 2, 16, 65, 65, "batched", None),
+    "f32_shared_n1": (torch.float32, 2, 16, 1, 1, "shared", None),
+    "f32_none_cross": (torch.float32, 1, 16, 77, 300, None, None),
+    "f32_masked_row": (torch.float32, 2, 16, 130, 130, "shared", None),
+    "f32_scale": (torch.float32, 2, 16, 200, 200, "batched", 0.3),
     "f32_shared_1025": (torch.float32, 1, 16, 1025, 1025, "shared", None),
     "f32_none_513": (torch.float32, 1, 16, 513, 513, None, None),
     "bf16_none_h12_b4_1025": (torch.bfloat16, 4, 12, 1025, 1025, None, None),
@@ -116,11 +125,15 @@ K1_CASES.update({
     "bf16_none_h12_1377": (torch.bfloat16, 1, 12, 1377, 1377, None, None)})
 
 
+F32_ACCURACY = 5e-5
+
+
 def _fault_errors(q, k, v, bias, scale, want):
     """The max abs error against ``want`` of the answer a kernel with each
     fault would give (the plain version on the same inputs): the last kv
     tile of 64 keys skipped (the ragged one where Nk % 64 != 0), the first
-    one skipped, the output scaled by 0.8."""
+    one skipped, the output scaled by 0.8; for f32, one TF32 pass (q, k, v
+    rounded to TF32)."""
     nk = k.shape[2]
 
     def without(keep):
@@ -131,6 +144,10 @@ def _fault_errors(q, k, v, bias, scale, want):
     if nk > 64:
         faults["last_kv_tile"] = without(slice(0, nk - (nk % 64 or 64)))
         faults["first_kv_tile"] = without(slice(64, nk))
+    if q.dtype == torch.float32:
+        r = fa.round_to_tf32
+        faults["tf32_one_pass"] = fa.flash_attention_plain(
+            r(q), r(k), r(v), bias, scale)
     return {name: (f.float() - want.float()).abs().max().item()
             for name, f in faults.items()}
 
@@ -139,7 +156,8 @@ def _fault_errors(q, k, v, bias, scale, want):
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_flash_attention_kernel_matches_plain(case):
     """Each bias in the padded-row layout the kernel reads (pad_bias_rows);
-    bf16 runs the tensor-core body, f32 the CUDA-core body."""
+    bf16 runs the bf16 body, f32 the split-TF32 body, held to f32
+    accuracy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -153,7 +171,7 @@ def test_flash_attention_kernel_matches_plain(case):
     if bias_kind:
         bias = fa.pad_bias_rows(
             mk(1 if bias_kind == "shared" else b, h, n, nk))
-    if case == "bf16_masked_row":
+    if case.endswith("masked_row"):
         bias[:, :, 5] = float("-inf")
     got = fa.flash_attention_cuda(q, k, v, bias, scale)
     torch.cuda.synchronize()
@@ -161,10 +179,15 @@ def test_flash_attention_kernel_matches_plain(case):
     err = (got.float() - want.float()).abs().max().item()
     tol = 2e-2 if dt == torch.bfloat16 else 5e-3
     assert err <= tol, err
-    if case == "bf16_masked_row":
+    if dt == torch.float32:
+        assert err <= F32_ACCURACY, err
+    if case.endswith("masked_row"):
         assert torch.count_nonzero(got[:, :, 5]) == 0
     faults = _fault_errors(q, k, v, bias, scale, want)
+    tf32 = faults.pop("tf32_one_pass", None)
     assert min(faults.values()) > tol, faults
+    if dt == torch.float32:
+        assert tf32 > F32_ACCURACY, tf32
 
 
 @pytest.mark.cuda
@@ -604,8 +627,8 @@ def test_small_marigold_card_matches_cpu():
     """Marigold's pipeline on small nets with heads of D = 64 (UNet base
     64: 1, 2 and 4 heads; VAE base 32), 48 x 64 members, 2 steps, the same
     noise, f32: K1 runs the 16 self- and 16 cross-attentions of each UNet
-    forward on the card (the 77 keys of the empty prompt), none on the
-    CPU; the members hold to 1e-3 of the CPU's range."""
+    forward on the card (the 77 keys of the empty prompt), all in its f32
+    body, none on the CPU; the members hold to 1e-3 of the CPU's range."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from depthmap_tpu_torch.models.marigold.pipeline import build_marigold
@@ -623,9 +646,13 @@ def test_small_marigold_card_matches_cpu():
         pipe.load_state_dict(sd)
         pipe = pipe.to(dev).eval()
         before = fa.flash_attention_cuda.launches
+        before_f32 = fa.flash_attention_cuda.launches_by_dtype["float32"]
         out[dev] = pipe.single_infer(rgb.to(dev), 2, noise).cpu().numpy()
         out[dev + "_launches"] = fa.flash_attention_cuda.launches - before
+        out[dev + "_f32"] = (fa.flash_attention_cuda.launches_by_dtype[
+            "float32"] - before_f32)
     assert (out["cuda_launches"], out["cpu_launches"]) == (64, 0)
+    assert (out["cuda_f32"], out["cpu_f32"]) == (64, 0)  # the f32 body
     rng_ = float(np.ptp(out["cpu"]))
     assert rng_ > 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
