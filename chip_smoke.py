@@ -8,8 +8,9 @@ Phases (each prints one line with its numbers; any failure exits non-zero
 and prints no result):
   0. environment: CUDA required; torch / CUDA versions, the card's name
      and power limit from nvidia-smi, whether PIL and cv2 import;
-  1. build: nvcc builds both hand-written kernels from csrc/ (in
-     parallel); ptxas's register / spill report of each kernel and K1's
+  1. build: nvcc builds both hand-written kernels from csrc/ and g++ the
+     host polylines kernel (in parallel); ptxas's register / spill report
+     of each kernel and K1's
      shared memory per body; per kernel of K1's SASS its HGMMA (wgmma)
      instructions: the bf16 kernel must hold some, the f32 kernel some on
      TF32 operands and at most K1_F32_MAX_FFMA FFMA (no product on the
@@ -40,7 +41,10 @@ and prints no result):
      it (f32: also the split-TF32 bound), and the error of three planted
      faults (a kv tile skipped, the output scaled), each of which must
      exceed the bound; f32 cases must also hold K1_F32_ACCURACY, which one
-     TF32 pass (a fourth fault) must break;
+     TF32 pass (a fourth fault) must break; then ("2a") the bf16 body's
+     rescale at N = 10765 (K1_ALPHA_*): its signed mean error against f64
+     over all rows within K1_ALPHA_SIGMAS standard errors of 0, the old
+     alpha form's (restated) outside, beside the plain version's;
   3. K2 (polylines) against its plain version, byte-exact: at 1080x1920,
      4 cases on a random depth map (sharp +24 and -48 px, soft -24 and +48;
      the timed one: sharp, +24 px) and one timed case on a smooth map,
@@ -131,7 +135,21 @@ and prints no result):
      and one run_makevideo at vid_ssaa 3 over 4 frames; card against CPU:
      the weighted median (equal), each net on one crop (NET_RTOL of the
      range), one rendered frame (99.9% of the pixels equal, |d| <= 2).
-Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16) sets every kernel
+ 17. the REST server (frontends/api.py make_server on a thread of this
+     process), random weights from seed 0: /depth/version and
+     /depth/get_options; POST /depth/generate with phase 4's images on
+     dpt_beit_large_512 + polylines_sharp stereo, then the default options
+     (DA v2 Base) on the 1080p image, each request's PNGs byte-equal to a
+     direct core_generation_funnel call and its K1 / K2 launches equal to
+     the direct call's (48 and 10 + 10; 12), with s per request and peak
+     memory; /depth/generate/video on one 512^2 image (the 3D photo from
+     seeded checkpoints, a REST_VIDEO_FRAMES-frame GIF); the 422 / 400 /
+     404 / 413 routes; the default-options request through `python -m
+     depthmap_tpu_torch.cli --serve` in a process of its own (its PNGs
+     equal, the process stopped); the UI's run_generate on BEiT + stereo
+     (24 K1 launches); the host polylines kernel byte-equal to K2 on a
+     1080p eye and to polylines_plain at 270 x 480, with each one's ms.
+Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17) sets every kernel
 count to 0 just before each timed run and reads it just after.  With
 --profile, torch.profiler over one warm funnel run per path (video mode:
 one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
@@ -140,8 +158,9 @@ last lines: the card's name and power limit, a JSON line with each
 kernel's numbers (K1's launches: the sum over the model paths, each
 path's count beside it, the f32 body's on the Marigold paths, and the f32
 body's main case, Marigold's (5, 5, 6912), with SDPA efficient's time and
-both bounds; K2's: the sweeps of phase 4 and of phase 15's pass 2, each
-beside it), and {"ok": true, "device": {...}}.
+both bounds, and the rescale check's signed mean; K2's: the sweeps of
+phases 4, 15's pass 2 and 17, each beside it), and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -181,6 +200,26 @@ K1_F32_MAX_FFMA = 160
 # a kernel errs.  With std-1 logits the softmax is nearly flat and the
 # outputs' RMS is sqrt(e / Nk), 0.016 at Nk = 10765: under the bf16 bound.
 K1_Q_SCALE, K1_V_SCALE = 4.0, 0.25
+# K1's rescale check (bf16 body, N = 10765: 169 kv tiles).  Every row's max
+# sits in the first tile at the same logit: q[..., 0] = 1, key 0 is
+# (K1_ALPHA_KEY, 0, ..., 0) and every other key is 0 there, so the max is
+# K1_ALPHA_KEY / 8 = 11.25 in every row (the other logits have std 1.5);
+# v rises with the key index (-1 to 1, plus N(0, 0.1) a column).  An alpha
+# that is not 1 while the max holds reweights the earlier tiles once a
+# tile, the same way in every row (~6e-7 a tile at this logit), so the
+# signed mean error against f64 over all rows drifts one way; bf16
+# rounding has no such mean.  So does one P.V accumulator over every tile,
+# since the tensor cores' sums round toward zero.  The kernel's signed mean
+# must lie within K1_ALPHA_SIGMAS standard errors of 0 (each row's mean
+# over D one sample), and the answer of the old form (the online softmax
+# restated tile by tile with alpha = ex2(m.log2e + nml)) must lie outside.
+# Measured on the H100 at these inputs (standard error 3.4e-7): the plain
+# version 1.0 standard errors, the restated new form 2.4, the kernel with
+# both repairs 3.8; the restated old form 42, the kernel with the old
+# alpha 12, with the new alpha but one accumulator 57.
+K1_ALPHA_N = 10765
+K1_ALPHA_KEY = 90.0
+K1_ALPHA_SIGMAS = 6.0
 K1_SOURCE = "depthmap_tpu_torch/csrc/flash_attention.cu"
 K1_REPLACES = "depthmap_tpu/ops/flash_attention.py:250"
 K2_SOURCE = "depthmap_tpu_torch/csrc/polylines.cu"
@@ -294,11 +333,14 @@ def phase_build():
     from depthmap_tpu_torch.ops import flash_attention as fa
     from depthmap_tpu_torch.ops import polylines as pl
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        libs = list(pool.map(lambda f: f(), (fa._lib, pl._lib)))
+    # one nvcc per source and g++ for the host polylines kernel, together
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda f: f(), (fa._lib, pl._lib,
+                                             pl._host_lib)))
     log("1-build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_kernel={k: round(v, 2) for k, v in
-                    cuda_build.build_seconds.items()})
+                    cuda_build.build_seconds.items()},
+        host_kernel=os.path.basename(libs[2]._name))
     for name, text in cuda_build.build_logs.items():
         fn = None
         for line in text.splitlines():
@@ -466,6 +508,108 @@ def k1_fault_errors(q, k, v, bias, want):
             r(q), r(k), r(v), bias)
     return {name: (f().float() - want.float()).abs().max().item()
             for name, f in faults.items()}
+
+
+def k1_alpha_inputs(seed: int = 2):
+    """The rescale check's (1, 16, K1_ALPHA_N, 64) bf16 q, k, v."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (1, 16, K1_ALPHA_N, 64)
+    q = torch.randn(shape, generator=g) * 1.5
+    q[..., 0] = 1.0
+    k = torch.randn(shape, generator=g)
+    k[..., 0] = 0.0
+    k[:, :, 0] = 0.0
+    k[:, :, 0, 0] = K1_ALPHA_KEY
+    v = torch.linspace(-1.0, 1.0, K1_ALPHA_N)[:, None] + \
+        0.1 * torch.randn(shape, generator=g)
+    return [x.to("cuda", torch.bfloat16) for x in (q, k, v)]
+
+
+def k1_online_softmax(q, k, v, alpha_form: str):
+    """K1's bf16 body restated tile by tile (64 keys) in f32: exponents
+    ex2(fma(x, log2e, nml)) with nml = -m.log2e rounded to f32, p rounded
+    to bf16 before p.v, each fma rounded once (exact in f64 first), and
+    alpha = ex2(fma(m_old, log2e, nml)) ("one_fma", the old form) or
+    ex2((m_old - m_new).log2e) ("difference")."""
+    import torch
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    log2e64 = log2e.double().item()
+    log2e = log2e.item()
+
+    def fma(a, c):
+        return (a.double() * log2e64 + c.double()).float()
+    qf = q.float()
+    m = torch.full(q.shape[:3] + (1,), float("-inf"), device=q.device)
+    ell = torch.zeros_like(m)
+    o = torch.zeros(q.shape, device=q.device)
+    for j in range(0, k.shape[2], 64):
+        x = torch.matmul(qf, k[:, :, j:j + 64].float().transpose(-1, -2)) \
+            * 0.125
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        nml = m_new * -log2e
+        a = torch.exp2(fma(m, nml)) if alpha_form == "one_fma" else \
+            torch.exp2((m - m_new) * log2e)
+        alpha = torch.where(torch.isinf(m), torch.zeros_like(a), a)
+        p = torch.exp2(fma(x, nml))
+        ell = ell * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.matmul(p.to(torch.bfloat16).float(),
+                                     v[:, :, j:j + 64].float())
+        m = m_new
+    return (o / ell).to(torch.bfloat16)
+
+
+def k1_alpha_drift(fa):
+    """The rescale check on ``fa`` (a tree's ops.flash_attention): the
+    signed mean error against f64 over all rows and its standard error,
+    for the kernel, the plain version and both restated forms; and the
+    kernel's max abs error against the plain version."""
+    import torch
+    q, k, v = k1_alpha_inputs()
+    ref = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for h in range(q.shape[1]):   # one head at a time: 0.9 GB of scores
+        s = torch.matmul(q[:, h].double(),
+                         k[:, h].double().transpose(-1, -2)) * 0.125
+        ref[:, h] = torch.matmul(torch.softmax(s, -1), v[:, h].double())
+        del s
+    got = fa.flash_attention_cuda(q, k, v)
+    plain = fa.flash_attention_plain(q, k, v)
+    out = {"max_abs_err": (got.float() - plain.float()).abs().max().item()}
+    for name, ans in (("kernel", got), ("plain", plain),
+                      ("one_fma", k1_online_softmax(q, k, v, "one_fma")),
+                      ("difference", k1_online_softmax(q, k, v,
+                                                       "difference"))):
+        e = (ans.double() - ref).mean(-1).flatten()
+        out[name] = (e.mean().item(), (e.std() / e.numel() ** 0.5).item())
+    del q, k, v, ref, got, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_k1_alpha():
+    """K1's rescale check (K1_ALPHA_*): the kernel's signed mean within
+    K1_ALPHA_SIGMAS standard errors of 0, the old form's outside, and the
+    kernel within the bf16 bound of the plain version."""
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    d = k1_alpha_drift(fa)
+    log("2-k1-alpha", n=K1_ALPHA_N, row_max_logit=K1_ALPHA_KEY / 8,
+        max_abs_err=f"{d['max_abs_err']:.3e}",
+        **{f"{name}_signed_mean": f"{d[name][0]:.3e}"
+           for name in ("kernel", "plain", "one_fma", "difference")},
+        **{f"{name}_stderr": f"{d[name][1]:.3e}"
+           for name in ("kernel", "one_fma")}, sigmas=K1_ALPHA_SIGMAS)
+    mean, se = d["kernel"]
+    if not abs(mean) <= K1_ALPHA_SIGMAS * se:
+        raise AssertionError(f"K1 bf16 drifts: signed mean {mean:.3e}, "
+                             f"{abs(mean) / se:.1f} standard errors")
+    old, old_se = d["one_fma"]
+    if not abs(old) > K1_ALPHA_SIGMAS * old_se:
+        raise AssertionError(f"the check would pass the old alpha: signed "
+                             f"mean {old:.3e}, stderr {old_se:.3e}")
+    if not d["max_abs_err"] <= K1_BOUND["bfloat16"]:
+        raise AssertionError(f"K1 alpha case: max abs err "
+                             f"{d['max_abs_err']}")
+    return d
 
 
 def sdpa_times(q, k, v, bias):
@@ -1928,6 +2072,328 @@ def photo_numerics(image, depth16, ckpt, mesh):
                              f"pixels differ, up to {d.max()}")
 
 
+# phase 17: the REST server.  Its one-process requests, then the same
+# request through `python -m depthmap_tpu_torch.cli --serve` (a new process
+# that reaches the card and builds its model: up to REST_SERVE_WAIT_S)
+REST_SERVE_WAIT_S = 180
+REST_VIDEO_FRAMES = 4
+
+
+def _png_b64(arr):
+    import base64
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _png_arrays(images_b64):
+    import base64
+    import io
+    import numpy as np
+    from PIL import Image
+    return [np.asarray(Image.open(io.BytesIO(base64.b64decode(b))))
+            for b in images_b64]
+
+
+def _http(url, payload=None, data=None, headers=None, timeout=600):
+    """(status, JSON body) of a GET (no payload / data) or a POST."""
+    import urllib.error
+    import urllib.request
+    if payload is not None:
+        data = json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, method="GET" if data is None else "POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _direct_images(images_b64, options):
+    """The image outputs of a direct core_generation_funnel call on the
+    request's decoded images and options (the default cache, as the
+    server's)."""
+    from depthmap_tpu_torch.frontends.api import (decode_base64_to_image,
+                                                  is_image_output)
+    from depthmap_tpu_torch.pipeline.core import core_generation_funnel
+    return [res for _, _, res in core_generation_funnel(
+        None, [decode_base64_to_image(b) for b in images_b64], None, None,
+        options) if is_image_output(res)]
+
+
+def rest_generate(base, label, payload, k1_expected, k2_expected):
+    """One POST /depth/generate against a direct funnel call: every PNG
+    byte-equal to the direct output, the same K1 / K2 launches (K1 those
+    of ``k1_expected``, K2's sort and sweep ``k2_expected`` each); a warm
+    direct call first (model build, cuDNN's choices).  Returns (the
+    decoded arrays, K1 launches, K2 sweeps)."""
+    import numpy as np
+    import torch
+    options = payload["options"]
+    _direct_images(payload["depth_input_images"], options)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    status, body = _http(base + "/depth/generate", payload)
+    seconds = time.perf_counter() - t0
+    request_counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if status != 200 or body.get("info") != "Success":
+        raise AssertionError(f"17 {label}: {status} {str(body)[:300]}")
+    got = _png_arrays(body["images"])
+    _zero_counts()
+    want = _direct_images(payload["depth_input_images"], options)
+    direct_counts = _counts()
+    if len(got) != len(want) or any(
+            g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"17 {label}: the REST PNGs differ from the "
+                             "direct funnel call")
+    if request_counts != direct_counts or request_counts != (
+            k1_expected, k2_expected, k2_expected):
+        raise AssertionError(f"17 {label}: launches (K1, K2 sort, sweep) "
+                             f"{request_counts} on the request, "
+                             f"{direct_counts} direct, expected "
+                             f"{(k1_expected, k2_expected, k2_expected)}")
+    log("17-rest", request=label, images=len(payload["depth_input_images"]),
+        pngs=len(got), s_per_request=f"{seconds:.4f}",
+        k1_launches=request_counts[0], k2_sort_launches=request_counts[1],
+        k2_launches=request_counts[2],
+        max_memory_allocated_GiB=f"{peak:.3f}", byte_equal=True)
+    return got, request_counts[0], request_counts[2]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rest_subprocess(payload, want):
+    """The request through `python -m depthmap_tpu_torch.cli --serve` in a
+    process of its own: its PNGs must equal ``want``; the process is
+    stopped in every case."""
+    import numpy as np
+    import urllib.request
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "depthmap_tpu_torch.cli", "--serve",
+         "--port", str(port)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/depth/version",
+                                            timeout=5):
+                    break
+            except OSError:
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > REST_SERVE_WAIT_S:
+                    raise AssertionError("17 --serve did not answer: "
+                                         f"{proc.poll()}")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, body = _http(base + "/depth/generate", payload)
+        seconds = time.perf_counter() - t1
+        if status != 200:
+            raise AssertionError(f"17 --serve: {status} {str(body)[:300]}")
+        got = _png_arrays(body["images"])
+        if len(got) != len(want) or not all(
+                np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("17 --serve: its PNGs differ from the "
+                                 "in-process server's")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    log("17-serve", command="python -m depthmap_tpu_torch.cli --serve",
+        s_to_answer=f"{up_s:.1f}", s_first_request=f"{seconds:.3f}",
+        pngs=len(got), byte_equal=True)
+
+
+def rest_host_kernel():
+    """The host polylines kernel against K2 on one 1080p sharp eye (+24
+    px), byte for byte, and against polylines_plain on 270 x 480 (+6 px);
+    each kernel's ms."""
+    import torch
+    from depthmap_tpu_torch.ops import polylines as pl
+    g = torch.Generator(device="cpu").manual_seed(17)
+    img, nds = k2_inputs(g, 1080, 1920)
+    nd = nds["random"]
+    img_h, nd_h = img.cpu(), nd.cpu()
+    k2_out = pl.polylines_cuda(img, nd, 24.0, 0.0, 1.0, True)
+    host = pl.polylines_host(img_h, nd_h, 24.0, 0.0, 1.0, True)
+    differ = int((host != k2_out.cpu()).sum())
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pl.polylines_host(img_h, nd_h, 24.0, 0.0, 1.0, True)
+        times.append((time.perf_counter() - t0) * 1e3)
+    k2_ms = cuda_ms(lambda: pl.polylines_cuda(img, nd, 24.0, 0.0, 1.0, True),
+                    10)
+    small_img, small_nd = img_h[:270, :480].contiguous(), \
+        nd_h[:270, :480].contiguous()
+    t0 = time.perf_counter()
+    plain = pl.polylines_plain(small_img, small_nd, 6.0, 0.0, 1.0, True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    small = pl.polylines_host(small_img, small_nd, 6.0, 0.0, 1.0, True)
+    small_ms = (time.perf_counter() - t0) * 1e3
+    small_differ = int((small != plain).sum())
+    log("17-host-kernel", eye="1080x1920 sharp +24px", bytes_differ_k2=differ,
+        host_ms=f"{min(times):.1f}", host_ms_runs=[f"{t:.1f}" for t in times],
+        k2_ms=f"{k2_ms:.4f}", cpu_threads=os.cpu_count(),
+        small="270x480 +6px", bytes_differ_plain=small_differ,
+        host_small_ms=f"{small_ms:.1f}", plain_small_ms=f"{plain_ms:.1f}")
+    if differ or small_differ:
+        raise AssertionError(f"17 host kernel: {differ} bytes differ from "
+                             f"K2, {small_differ} from polylines_plain")
+
+
+def phase_rest(profile: bool = False):
+    """The REST server (frontends/api.py make_server) on a thread of this
+    process at full width, random weights from seed 0: the info routes;
+    POST /depth/generate with phase 4's images (4 x 512^2 + 1080p) on
+    dpt_beit_large_512 with polylines_sharp stereo, then the default
+    options (DA v2 Base) on the 1080p image, each byte-equal to a direct
+    funnel call with the same launches; /depth/generate/video on one
+    512^2 image (the 3D photo from seeded checkpoints, a GIF trajectory);
+    the error routes; the same default-options request through `python -m
+    depthmap_tpu_torch.cli --serve`; the UI's run_generate on BEiT +
+    stereo; the host polylines kernel against K2.  Returns {path: K1
+    launches}, {path: K2 sweeps}."""
+    import tempfile
+    import threading
+    import torch
+    from PIL import Image
+    from depthmap_tpu_torch.frontends import api, gradio_ui
+    from depthmap_tpu_torch.models.weights import \
+        save_random_inpaint_checkpoints
+    from depthmap_tpu_torch.options import GenerationOptions
+    from depthmap_tpu_torch.pipeline import core
+    images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
+    b64 = [_png_b64(i) for i in images]
+    srv = api.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    cwd = os.getcwd()
+    k1_by_path, k2_by_path = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            status, body = _http(base + "/depth/version")
+            if status != 200 or body != {"version": api.SCRIPT_VERSION}:
+                raise AssertionError(f"17 version: {status} {body}")
+            status, body = _http(base + "/depth/get_options")
+            if status != 200 or body["options"] != sorted(
+                    GenerationOptions.field_names()):
+                raise AssertionError(f"17 get_options: {status} {body}")
+            beit = {"model_type": 1, "net_width": 512, "net_height": 512,
+                    "gen_stereo": True,
+                    "stereo_modes": ["left-right", "red-cyan-anaglyph"],
+                    "stereo_fill_algo": "polylines_sharp"}
+            blocks = 24
+            _, k1, k2 = rest_generate(
+                base, "dpt_beit_large_512", {"depth_input_images": b64,
+                                             "options": beit,
+                                             "outpath": tmp},
+                blocks * 2, 2 * len(images))
+            k1_by_path["rest_dpt_beit_large_512"] = k1
+            k2_by_path["rest_dpt_beit_large_512"] = k2
+            defaults = {"depth_input_images": b64[-1:], "options": {},
+                        "outpath": tmp}
+            default_pngs, k1, _ = rest_generate(
+                base, "default_options_da_v2_base", defaults, 12, 0)
+            k1_by_path["rest_default_options_da_v2_base"] = k1
+
+            # the video route: the 3D photo from ./models/3dphoto
+            save_random_inpaint_checkpoints(
+                os.path.join(tmp, "models", "3dphoto"), seed=17)
+            os.chdir(tmp)
+            video = os.path.join(tmp, "video", "traj.gif")
+            t0 = time.perf_counter()
+            status, body = _http(base + "/depth/generate/video", {
+                "depth_input_images": b64[:1], "outpath": tmp, "options": {
+                    "model_type": "depth_anything_v2_base",
+                    "video_parameters": {
+                        "vid_numframes": REST_VIDEO_FRAMES, "vid_fps": 8,
+                        "vid_traj": 1, "vid_shift": "-0.015, 0.0, -0.05",
+                        "vid_border": "0.03, 0.03, 0.05, 0.03",
+                        "dolly": False, "vid_format": "gif", "vid_ssaa": 1,
+                        "output_filename": video}}})
+            video_s = time.perf_counter() - t0
+            os.chdir(cwd)
+            written = sorted(os.listdir(os.path.dirname(video))) \
+                if os.path.isdir(os.path.dirname(video)) else []
+            if status != 200 or body != {"info": "Success"} or \
+                    not written or not os.path.getsize(
+                        os.path.join(os.path.dirname(video), written[0])):
+                raise AssertionError(f"17 video: {status} {body} {written}")
+            log("17-rest", request="video", status=status,
+                s_per_request=f"{video_s:.2f}", frames=REST_VIDEO_FRAMES,
+                written=written)
+
+            for label, url, payload, want in (
+                    ("no_images", "/depth/generate",
+                     {"depth_input_images": []}, 422),
+                    ("unknown_model", "/depth/generate/video",
+                     {"depth_input_images": b64[:1],
+                      "options": {"model_type": "nope"}}, 400),
+                    ("not_found", "/depth/nope", None, 404)):
+                status, body = _http(base + url, payload)
+                if status != want:
+                    raise AssertionError(f"17 {label}: {status} {body}")
+            status, body = _http(base + "/depth/generate", data=b"{}",
+                                 headers={"Content-Length": str(
+                                     api.Handler.MAX_BODY_BYTES + 1)})
+            if status != 413:
+                raise AssertionError(f"17 413: {status} {body}")
+            if not thread.is_alive():
+                raise AssertionError("17: the server thread died")
+            log("17-rest", errors="422 400 404 413", thread_alive=True)
+
+            rest_subprocess(defaults, default_pngs)
+
+            # the UI's run_generate with the panel's options
+            named = dict(GenerationOptions(
+                model_type=1, net_width=512, net_height=512, gen_stereo=True,
+                stereo_fill_algo="polylines_sharp").to_dict(),
+                depthmap_mode="0", custom_depthmap=False, save_outputs=True,
+                depthmap_input_image=Image.fromarray(images[0]))
+            _zero_counts()
+            t0 = time.perf_counter()
+            gallery, _, _, html = gradio_ui.run_generate(
+                named, outpath=os.path.join(tmp, "ui"))
+            ui_s = time.perf_counter() - t0
+            ui_k1 = _counts()[0]
+            if "ERROR" in html or len(gallery) != 3 or ui_k1 != blocks:
+                raise AssertionError(f"17 run_generate: {html[:300]} "
+                                     f"{len(gallery)} {ui_k1}")
+            log("17-ui", run_generate="BEiT + stereo, 512^2",
+                s=f"{ui_s:.3f}", gallery=len(gallery), k1_launches=ui_k1)
+    finally:
+        os.chdir(cwd)
+        srv.shutdown()
+        srv.server_close()
+        core._default_cache.release()
+        torch.cuda.empty_cache()
+    rest_host_kernel()
+    return k1_by_path, k2_by_path
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -1940,6 +2406,7 @@ def main() -> int:
     smi = timed("0", phase_environment)
     timed("1", phase_build)
     k1_err, k1, k1_f32 = timed("2", phase_k1)
+    k1_alpha = timed("2a", phase_k1_alpha)
     k2_err, k2 = timed("3", phase_k2)
     k1_by_path = {}
     k1_by_path["dpt_beit_large_512"], k2_launches = timed(
@@ -1964,6 +2431,9 @@ def main() -> int:
         "15", phase_video, profile)
     k1_by_path["3dphoto_da_v2_base"] = timed("16", phase_3dphoto, profile)
     k2_by_path = {"dpt_beit_large_512": k2_launches, "video_pass2": k2_video}
+    k1_rest, k2_rest = timed("17", phase_rest, profile)
+    k1_by_path.update(k1_rest)
+    k2_by_path.update(k2_rest)
     log("phases", seconds=seconds)
     import torch
 
@@ -1981,10 +2451,13 @@ def main() -> int:
         row("flash_attention", K1_SOURCE, K1_REPLACES,
             sum(k1_by_path.values()), k1_err, k1,
             device_ms=k1["device_ms"], launches_by_path=k1_by_path,
-            launches_f32_by_path=k1_f32_by_path, f32_main=k1_f32),
-        # K2's launches: its sweep's, one per eye of the BEiT path's and
-        # of video mode's polylines stereo (each eye also launched one
-        # sort, checked there), per path beside it
+            launches_f32_by_path=k1_f32_by_path, f32_main=k1_f32,
+            bf16_alpha_signed_mean=k1_alpha["kernel"][0],
+            bf16_alpha_stderr=k1_alpha["kernel"][1]),
+        # K2's launches: its sweep's, one per eye of the BEiT paths' (the
+        # funnel's and the REST request's) and of video mode's polylines
+        # stereo (each eye also launched one sort, checked there), per
+        # path beside it
         row("polylines", K2_SOURCE, K2_REPLACES,
             sum(k2_by_path.values()), k2_err, k2,
             launches_by_path=k2_by_path),

@@ -1,15 +1,17 @@
 """Command-line frontend of the port: image/batch depth generation.
 
-    python -m depthmap_tpu_torch.cli img.png --model dpt_beit_large_512 \
-        --stereo
+    python -m depthmap_tpu_torch img.png --model dpt_beit_large_512 --stereo
+    python -m depthmap_tpu_torch --serve --port 7860   # the REST API
+    python -m depthmap_tpu_torch --ui --port 7860      # the Gradio UI
 
 Same flags as ``depthmap_tpu/frontends/cli.py``; every yielded artifact is
 saved into the output directory with sequence-numbered names (the simple
 mesh and the inpainted mesh are written there by the funnel).  ``--video``
 runs video mode (``pipeline/video_mode.py gen_video``) on a video file or a
-directory of frames.  Options the port does not have yet (the REST server,
-the web UI, and the outputs the funnel rejects) raise NotImplementedError.
-PIL is imported only to load and save images.
+directory of frames; ``--serve`` starts the REST server
+(``frontends/api.py``) and ``--ui`` the Gradio UI
+(``frontends/gradio_ui.py``, which needs gradio) on ``--listen`` /
+``--port``.  PIL is imported only to load and save images.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rembg-model", default="u2net")
     p.add_argument("--inpainted-mesh", action="store_true")
     p.add_argument("--inpainted-mesh-demos", action="store_true")
-    p.add_argument("--ui", action="store_true")
+    p.add_argument("--ui", action="store_true",
+                   help="launch the Gradio web UI (requires gradio)")
     p.add_argument("--invert-depth", action="store_true")
     p.add_argument("--combine-output", action="store_true")
     p.add_argument("--clipdepth", action="store_true")
@@ -150,11 +153,14 @@ def _load_images(paths):
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in (("ui", "Queue 1 item 14 (frontends)"),
-                       ("serve", "Queue 1 item 14 (frontends)")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md {item}")
+    if args.ui:
+        from depthmap_tpu_torch.frontends.gradio_ui import launch_ui
+        launch_ui(host=args.listen, port=args.port)
+        return 0
+    if args.serve:
+        from depthmap_tpu_torch.frontends.api import serve
+        serve(host=args.listen, port=args.port)
+        return 0
     if args.video is not None:
         from depthmap_tpu_torch.pipeline.video_mode import gen_video
         for fn in gen_video(args.video, args.output, args_to_options(args),

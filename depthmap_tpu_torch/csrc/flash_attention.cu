@@ -38,9 +38,15 @@
 //    ex2.approx moves it to log2 space (log2e and the row max folded in);
 //    the 4 lanes of a row reduce its max by shuffles and keep partial
 //    sums, reduced once at the end.
-//  * O += P.V is four wgmma with P from registers (the S accumulator is the
-//    A-fragment layout once rounded to bf16) and V from shared memory as
-//    stored (MN-major, the transposed-B form).
+//  * Each tile's P.V is four wgmma into an accumulator of its own, with P
+//    from registers (the S accumulator is the A-fragment layout once
+//    rounded to bf16) and V from shared memory as stored (MN-major, the
+//    transposed-B form), then O = O.alpha + tile in f32 (the tensor cores'
+//    sums round toward zero: one accumulator over every tile drifted by a
+//    signed 1.9e-5 from f64 at 10,765 keys); alpha comes from the
+//    difference of the maxima, exactly 1 while the max holds.  (Adding a
+//    tile to O during the next tile's S measured slower: ptxas waits on
+//    the wgmma there.)
 //  * The grid runs batch fastest, so the CTAs of one (head, query tile)
 //    read a shared bias tile close together in time and find it in L2.
 //  * q, k, v are described to TMA as (64, N, B.H): a head's ragged last
@@ -194,13 +200,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 // memory (the transposed-B form)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int acc) {
     asm volatile(
         "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_STR
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
         : ACC32_OPS(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -319,7 +325,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         }
 
         // online softmax in log2 space: exp(x - m) = ex2(x.log2e - m.log2e),
-        // one FMA before each ex2
+        // one FMA before each ex2.  alpha comes from the difference of the
+        // maxima, exactly 1 while the max holds (the reference's
+        // exp2(m_prev - m_next)); ex2(m.log2e + nml) is not (nml is
+        // -m.log2e rounded), and would rescale the earlier tiles' weights
+        // by ~1e-6 once a tile.
         float alpha[2];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -331,8 +341,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
             const float m_new = fmaxf(m[hh], mx);
-            const float nml = -LOG2E * (m_new == -INFINITY ? 0.f : m_new);
-            alpha[hh] = ex2(fmaf(m[hh], LOG2E, nml));
+            const float m_use = m_new == -INFINITY ? 0.f : m_new;
+            const float nml = -LOG2E * m_use;
+            alpha[hh] = ex2((m[hh] - m_use) * LOG2E);
             m[hh] = m_new;
             float sum = 0.f;
 #pragma unroll
@@ -354,23 +365,32 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
             for (int i = 0; i < 4; ++i)
                 pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i],
                                       sc[8 * kk + 2 * i + 1]);
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-                o[4 * jj + 2 * hh] *= alpha[hh];
-                o[4 * jj + 2 * hh + 1] *= alpha[hh];
-            }
 
+        // P.V of this tile into a fresh accumulator, then O = O.alpha +
+        // tile, rounded to nearest: the tensor cores' sums round toward
+        // zero, so one accumulator over every tile would pile that bias up
+        // (a signed mean error of 1.9e-5 against f64 at 10,765 keys)
+        float pv[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pv[i] = 0.f;
         const uint64_t dv = sw128_desc(base + OFF_V + s * TILE_BYTES);
-        reg_fence(o);
+        reg_fence(pv);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)  // 16 keys per step: +2048 bytes
-            wgmma_rs(o, pa[kk], dv + 128 * kk);
+            wgmma_rs(pv, pa[kk], dv + 128 * kk, kk);
         wg_commit();
         wg_wait0();
-        reg_fence(o);
+        reg_fence(pv);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int i = 4 * jj + 2 * hh + e;
+                    o[i] = fmaf(o[i], alpha[hh], pv[i]);
+                }
 
         __syncthreads();  // every thread is done with stage s
         if (tid == 0 && j + STAGES < n_tiles) issue(j + STAGES, s);

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
 into ``_build/<name>-<hash>.so`` (the hash covers the source and the
-flags), then loaded with ctypes.  Nothing is built at import time: the
+flags; ``build``, which ``ops/host_build.py`` shares), then loaded with
+ctypes.  Nothing is built at import time: the
 first call of ``load(name)`` compiles, later calls reuse the loaded
 library.  PyTorch's headers are not included, so a build takes seconds.
 ptxas reports each kernel's registers, shared memory and spills
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,27 +41,39 @@ def nvcc_path() -> str:
     return path
 
 
+def build(src: str, compiler: str, flags: Sequence[str]) -> Tuple[str, str]:
+    """Compile ``src`` into _build/<name>-<hash>.so unless that file is
+    there (the hash covers the source and the flags); returns its path and
+    the compiler's stderr ("" when nothing was built).  A failed build
+    raises."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a private name, then publish atomically: a concurrent
+    # process never loads a half-written library
+    tmp = f"{out}.tmp{os.getpid()}"
+    proc = subprocess.run([compiler, *flags, "-o", tmp, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                           f"{src}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stderr
+
+
 def load(name: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile (once per source hash) and load csrc/<name>.cu."""
     if name in _loaded:
         return _loaded[name]
-    src = os.path.join(CSRC, f"{name}.cu")
-    flags = list(ARCH_FLAGS) + list(BASE_FLAGS) + list(extra_flags)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # compile to a private name, then publish atomically: a concurrent
-        # process never loads a half-written library
-        tmp = f"{out}.tmp{os.getpid()}"
-        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-        build_logs[name] = proc.stderr
-        os.replace(tmp, out)
+    out, log = build(os.path.join(CSRC, f"{name}.cu"), nvcc_path(),
+                     list(ARCH_FLAGS) + list(BASE_FLAGS) + list(extra_flags))
+    if log:
+        build_logs[name] = log
     lib = ctypes.CDLL(out)
     build_seconds[name] = time.perf_counter() - t0
     _loaded[name] = lib

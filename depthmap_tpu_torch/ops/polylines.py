@@ -2,9 +2,12 @@
 
 ``polylines_rasterize`` launches the hand-written CUDA kernel of
 ``csrc/polylines.cu`` (the port of the Pallas TPU kernel
-depthmap_tpu/ops/polylines_pallas.py:451) for CUDA tensors and runs
-``polylines_plain`` for CPU tensors.  Both follow the f64 sort-and-sweep of
-depthmap_tpu/native/polylines.cpp:26 and are byte-exact against it.
+depthmap_tpu/ops/polylines_pallas.py:451) for CUDA tensors and runs the
+host kernel of ``csrc/polylines_host.cpp`` (built by g++ at first use,
+``ops/host_build.py``) for CPU tensors.  Both follow the f64
+sort-and-sweep of depthmap_tpu/native/polylines.cpp:26 and are byte-exact
+against it and against ``polylines_plain``, the function in plain torch,
+which the tests hold them to.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import ctypes
 
 import torch
 
-from depthmap_tpu_torch.ops import cuda_build
+from depthmap_tpu_torch.ops import cuda_build, host_build
 
 EPS = 1e-7
 _MAX_CHANNELS = 4
@@ -309,13 +312,55 @@ def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,
     return _sweep_cuda(sorted_, rgb, order, w, ch, sharp)
 
 
+def _host_lib():
+    lib = host_build.load("polylines_host")
+    if not getattr(lib, "_typed", False):
+        lib.polylines.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.polylines.restype = None
+        lib._typed = True
+    return lib
+
+
+def polylines_host(image: torch.Tensor, nd: torch.Tensor,
+                   divergence_px: float, separation_px: float,
+                   exponent: float, sharp: bool) -> torch.Tensor:
+    """Run the host kernel: image (R, W, C) uint8 and nd (R, W) float64,
+    contiguous, on the CPU; the rows on a thread each of the host's
+    cores.  Counts its calls in ``polylines_host.launches``."""
+    if image.is_cuda or nd.is_cuda:
+        raise ValueError("polylines_host takes CPU tensors")
+    if image.dtype != torch.uint8 or nd.dtype != torch.float64:
+        raise TypeError(f"dtypes {image.dtype}, {nd.dtype}: the kernel takes "
+                        "uint8 image and float64 nd")
+    if image.dim() != 3 or nd.dim() != 2 or \
+            tuple(image.shape[:2]) != tuple(nd.shape) or \
+            not (image.is_contiguous() and nd.is_contiguous()):
+        raise ValueError(f"shapes image {tuple(image.shape)} nd "
+                         f"{tuple(nd.shape)}: need contiguous (R, W, C) "
+                         "and (R, W)")
+    rows, w, ch = image.shape
+    _check_span(w, divergence_px, separation_px)
+    out = torch.empty_like(image)
+    _host_lib().polylines(image.data_ptr(), nd.data_ptr(), rows, w, ch,
+                          float(divergence_px), float(separation_px),
+                          float(exponent), int(bool(sharp)), out.data_ptr())
+    polylines_host.launches += 1
+    return out
+
+
+polylines_host.launches = 0
+
+
 def polylines_rasterize(image: torch.Tensor, nd: torch.Tensor,
                         divergence_px: float, separation_px: float,
                         exponent: float, sharp: bool) -> torch.Tensor:
     """image (..., H, W, C) uint8, nd (..., H, W) normalized depth in [0, 1]
     -> (..., H, W, C) uint8.  Leading dims (frames) flatten into rows of
-    one launch.  CUDA tensors launch the kernel, CPU tensors run the plain
-    version."""
+    one launch.  CUDA tensors launch the kernel, CPU tensors the host
+    kernel."""
     lead = image.shape[:-2]
     w, ch = image.shape[-2:]
     img2 = image.reshape(-1, w, ch).contiguous()
@@ -324,6 +369,6 @@ def polylines_rasterize(image: torch.Tensor, nd: torch.Tensor,
         out = polylines_cuda(img2, nd2, divergence_px, separation_px,
                              exponent, sharp)
     else:
-        out = polylines_plain(img2, nd2, divergence_px, separation_px,
-                              exponent, sharp)
+        out = polylines_host(img2, nd2, divergence_px, separation_px,
+                             exponent, sharp)
     return out.reshape(*lead, w, ch)

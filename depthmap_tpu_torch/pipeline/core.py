@@ -22,8 +22,13 @@ the last one, runs the 3D photo (``pipeline/inpaint_video.py
 run_3dphoto``: the filter, the nets and the demo renders on the funnel's
 device, the nets from ``./models/3dphoto`` when their checkpoints are
 there) and yields ``(0, "inpainted_mesh", path of the OBJ)``; a failure
-there raises.  Background removal raises NotImplementedError naming its
-ROADMAP item.  ``compute_device`` picks
+there raises.  ``gen_rembg`` removes the background through the optional
+``rembg`` package (``pipeline/rembg_integration.py``), before the depth or
+after it, masks the uint16 map in place (so the mask reaches the 3D photo)
+and yields ``background_removed`` (RGBA) and, when asked,
+``foreground_mask``; without rembg it prints and skips, as the JAX funnel
+does.  An out-of-memory error re-raises as an Exception carrying the JAX
+funnel's advice.  ``compute_device`` picks
 the device: "GPU" is CUDA (and raises without it), "CPU" is the host.
 A call that passes no ``predictor_cache`` uses the module's
 ``_default_cache``, so the model stays on its device between calls
@@ -31,6 +36,7 @@ unless ``ops["keepmodels"]`` is false.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -46,10 +52,7 @@ from depthmap_tpu_torch.ops.stereo import create_stereoimages
 from depthmap_tpu_torch.options import GenerationOptions
 from depthmap_tpu_torch.pipeline.depth import DepthPredictor
 from depthmap_tpu_torch.registry import resolve_model_type
-
-_NOT_PORTED = {
-    "gen_rembg": "Queue 1 item 14 (frontends: rembg integration)",
-}
+from depthmap_tpu_torch.utils.profiling import stage
 
 
 class PredictorCache:
@@ -101,10 +104,20 @@ _default_cache = PredictorCache()
 
 def _load_pix2pix(weights_dir: str):
     """The merge net with ``<weights_dir>/pix2pix/latest_net_G.pth`` loaded
-    (strictly); without the file, FileNotFoundError, or with
-    DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 a warning and ``None`` (seeded random
-    weights)."""
+    (strictly), fetched first under DEPTHMAP_ALLOW_DOWNLOAD=1 (a failed
+    fetch prints and goes on); without the file, FileNotFoundError, or
+    with DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 a warning and ``None`` (seeded
+    random weights)."""
     path = os.path.join(weights_dir, "pix2pix", "latest_net_G.pth")
+    if not os.path.exists(path) and \
+            os.environ.get("DEPTHMAP_ALLOW_DOWNLOAD") == "1":
+        try:
+            from depthmap_tpu_torch.utils.download import \
+                ensure_pix2pix_downloaded
+            path = ensure_pix2pix_downloaded(weights_dir)
+        except Exception as e:
+            print(f"pix2pix download failed ({e}); "
+                  "Boost merge quality will be degraded")
     if os.path.exists(path):
         from depthmap_tpu_torch.models.pix2pix import build_pix2pix
         from depthmap_tpu_torch.models.weights import load_pix2pix
@@ -113,9 +126,10 @@ def _load_pix2pix(weights_dir: str):
         return net
     advice = ("pix2pix merge-net weights not found: Boost would merge "
               "through a random-init net and emit plausible-looking but "
-              f"wrong depth.  Place latest_net_G.pth under {weights_dir}/"
-              "pix2pix/, or set DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 to run "
-              "anyway (tests and benchmarks only).")
+              "wrong depth.  Set DEPTHMAP_ALLOW_DOWNLOAD=1 or place "
+              f"latest_net_G.pth under {weights_dir}/pix2pix/, or set "
+              "DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1 to run anyway (tests and "
+              "benchmarks only).")
     if os.environ.get("DEPTHMAP_ALLOW_RANDOM_PIX2PIX") == "1":
         print("warning: " + advice)
         return None
@@ -178,6 +192,41 @@ def _funnel_net_size(inp, w: int, h: int):
     return inp.net_width, inp.net_height
 
 
+def oom_suggestion(inp) -> str:
+    """The JAX funnel's out-of-memory advice for these options (the
+    reference's, core.py:310-326)."""
+    suggestion = "out of device memory, could not generate depthmap! " \
+                 "Suggestions:\n"
+    if inp.boost:
+        suggestion += " * Disable BOOST (faster, less detailed depthmap)\n"
+    else:
+        suggestion += " * Reduce net size (could reduce quality)\n"
+    if resolve_model_type(inp.model_type) != 6:
+        suggestion += " * Use a smaller model (e.g. midas_v21_small)\n"
+    return suggestion
+
+
+@contextlib.contextmanager
+def _oom_advice(inp):
+    """Re-raise torch.OutOfMemoryError, or any error whose text holds "out
+    of memory", as an Exception carrying ``oom_suggestion``."""
+    try:
+        yield
+    except Exception as e:
+        if isinstance(e, torch.OutOfMemoryError) or \
+                "out of memory" in str(e).lower():
+            raise Exception(oom_suggestion(inp)) from e
+        raise
+
+
+def _pixels(image) -> int:
+    """H x W of a PIL image or an array."""
+    if hasattr(image, "getbands"):
+        return image.height * image.width
+    shape = np.asarray(image).shape
+    return shape[0] * shape[1]
+
+
 def _convert_to_i16_host(out: np.ndarray) -> np.ndarray:
     """numerics.convert_to_i16 of a host map (the JAX funnel's numpy twin:
     clip(out, 0, 1) * 65536 + 0.0001 in f64, clipped, truncated)."""
@@ -198,10 +247,6 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         inputdepthmaps = [None] * len(inputimages)
     inputdepthmaps_complete = all(x is not None for x in inputdepthmaps)
     inp = GenerationOptions.from_dict(inp if inp is not None else {})
-    for opt, item in _NOT_PORTED.items():
-        if getattr(inp, opt):
-            raise NotImplementedError(
-                f"option {opt} is not ported yet: ROADMAP.md {item}")
     cache = predictor_cache or _default_cache
     ops = ops or {}
     dev = options_device(inp)
@@ -214,6 +259,19 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             ops.get("marigold_ensembles", 5))
         predictor_kw["marigold_steps"] = int(ops.get("marigold_steps", 12))
 
+    background_removed: List[np.ndarray] = []
+    if inp.gen_rembg:
+        from depthmap_tpu_torch.pipeline.rembg_integration import (
+            batched_background_removal, rembg_available)
+        if not rembg_available():
+            print("rembg is not installed; skipping background removal")
+            inp = inp.replace(gen_rembg=False)
+        else:
+            background_removed = batched_background_removal(
+                inputimages, inp.rembg_model)
+            if inp.pre_depth_background_removal:
+                inputimages = background_removed
+
     predictor = None
     if not inputdepthmaps_complete:
         predictor = cache.get(inp.model_type, tiling_mode=inp.tiling_mode,
@@ -221,8 +279,11 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
 
     # Batched pre-pass: images that share a shape and need no host-side raw
     # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH
-    # (Marigold's one image at a time).  A failure raises: it does not fall
-    # back to the serial loop.  The raw map goes to the host for
+    # (Marigold's one image at a time).  It holds every input's RGB array
+    # and uint16 map (5 bytes a pixel) until the loop below yields them, so
+    # above DEPTHMAP_FUNNEL_BATCH_MAX_BYTES (1 GiB) of inputs it is skipped
+    # and the loop streams one image at a time.  A failure raises: it does
+    # not fall back to the serial loop.  The raw map goes to the host for
     # depth_prediction and the simple mesh, and Boost makes it there.
     raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh or \
         inp.boost
@@ -232,8 +293,11 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
     inpaint_depths: List[np.ndarray] = []
     if predictor is not None and not raw_to_host and len(inputimages) > 1:
         chunk = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH", "8"))
+        max_bytes = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH_MAX_BYTES",
+                                       str(1 << 30)))
+        total = sum(5 * _pixels(im) for im in inputimages)
         groups: Dict[Tuple[int, int], list] = {}
-        if chunk >= 2:
+        if chunk >= 2 and total <= max_bytes:
             for count, image in enumerate(inputimages):
                 if inputdepthmaps[count] is not None:
                     continue
@@ -248,11 +312,12 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 part = members[i:i + chunk]
                 stack = np.stack([m[1] for m in part]).astype(
                     np.float32) / 255.0
-                maps = predictor.finalized_batch(
-                    stack, nw, nh, clip=inp.clipdepth,
-                    clip_mode=inp.clipdepth_mode,
-                    clip_far=inp.clipdepth_far,
-                    clip_near=inp.clipdepth_near).cpu().numpy()
+                with _oom_advice(inp):
+                    maps = predictor.finalized_batch(
+                        stack, nw, nh, clip=inp.clipdepth,
+                        clip_mode=inp.clipdepth_mode,
+                        clip_far=inp.clipdepth_far,
+                        clip_near=inp.clipdepth_near).cpu().numpy()
                 for (idx, _), m16 in zip(part, maps):
                     fused[idx] = m16
 
@@ -273,19 +338,24 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             net_w, net_h = _funnel_net_size(inp, w, h)
             img01 = img.astype(np.float32) / 255.0
             if not raw_to_host:
-                img_output = predictor.predict_finalized(
-                    img01, net_w, net_h, clip=inp.clipdepth,
-                    clip_mode=inp.clipdepth_mode,
-                    clip_far=inp.clipdepth_far,
-                    clip_near=inp.clipdepth_near)
+                with _oom_advice(inp), stage("depth_predict"):
+                    img_output = predictor.predict_finalized(
+                        img01, net_w, net_h, clip=inp.clipdepth,
+                        clip_mode=inp.clipdepth_mode,
+                        clip_far=inp.clipdepth_far,
+                        clip_near=inp.clipdepth_near)
             else:
                 if inp.boost:
-                    raw = cache.get_boost(
-                        inp.model_type, tiling_mode=inp.tiling_mode,
-                        **predictor_kw).estimate(
-                            img01, whole_size_threshold=boost_rmax)
+                    with _oom_advice(inp):
+                        boost = cache.get_boost(
+                            inp.model_type, tiling_mode=inp.tiling_mode,
+                            **predictor_kw)
+                        with stage("boost_estimate"):
+                            raw = boost.estimate(
+                                img01, whole_size_threshold=boost_rmax)
                 else:
-                    raw = predictor.predict(img01, net_w, net_h)
+                    with _oom_advice(inp), stage("depth_predict"):
+                        raw = predictor.predict(img01, net_w, net_h)
                 depthi = raw
                 invert = predictor.raw_prediction_invert
                 if inp.do_output_depth_prediction and \
@@ -301,6 +371,18 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         if inp.gen_inpainted_mesh:
             inpaint_imgs.append(img)
             inpaint_depths.append(img_output)
+
+        if inp.gen_rembg:
+            from depthmap_tpu_torch.pipeline.rembg_integration import (
+                background_mask, foreground_mask_image)
+            removed = background_removed[count]
+            bg_mask = background_mask(removed)
+            # in place: the map kept for the 3D photo above is this array,
+            # so the mask reaches the mesh, as in the JAX funnel
+            img_output[bg_mask] = 0
+            yield count, "background_removed", removed
+            if inp.save_background_removal_masks:
+                yield count, "foreground_mask", foreground_mask_image(bg_mask)
 
         if inp.do_output_depth:
             img_depth = img_output
@@ -318,11 +400,12 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 yield count, "depth", img_depth
 
         if inp.gen_stereo:
-            stereoimages = create_stereoimages(
-                img, img_output, inp.stereo_divergence,
-                inp.stereo_separation, inp.stereo_modes,
-                inp.stereo_balance, inp.stereo_offset_exponent,
-                inp.stereo_fill_algo, device=dev)
+            with stage("stereo"):
+                stereoimages = create_stereoimages(
+                    img, img_output, inp.stereo_divergence,
+                    inp.stereo_separation, inp.stereo_modes,
+                    inp.stereo_balance, inp.stereo_offset_exponent,
+                    inp.stereo_fill_algo, device=dev)
             for c, simg in enumerate(stereoimages):
                 yield count, inp.stereo_modes[c], simg
 

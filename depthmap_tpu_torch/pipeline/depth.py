@@ -16,6 +16,11 @@ on the device, its resizes and ensemble alignment on the host) in the
 pipeline's own dtype; a batch runs serially.  ``forward_net`` is the forward
 on an input already at net size that Boost calls.
 
+Weights: ``weights_dir``'s checkpoint of the model (Marigold: its
+diffusers tree) where it is there, fetched first under
+DEPTHMAP_ALLOW_DOWNLOAD=1 (``utils/download.py``), else seeded random
+weights.
+
 Device: "cuda" (or a cuda:N) needs CUDA and raises without it; "cpu" runs
 everything on the host, attention through K1's plain version.
 """
@@ -88,6 +93,17 @@ def precision(model_type: int, compute_dtype=None,
     return compute, core
 
 
+def _fetch_marigold(weights_dir: str) -> None:
+    """Marigold's diffusers tree into ``weights_dir/marigold``; a failed
+    fetch prints and the pipeline goes on as it would without the tree,
+    as in the JAX predictor."""
+    from depthmap_tpu_torch.utils.download import ensure_marigold_downloaded
+    try:
+        ensure_marigold_downloaded(weights_dir)
+    except Exception as e:
+        print(f"Marigold download failed ({e})")
+
+
 class DepthPredictor:
     """One depth model on one device."""
 
@@ -113,12 +129,21 @@ class DepthPredictor:
             self.compute_dtype, self.core_dtype = precision(
                 self.model_type, compute_dtype, self.bundle.selective_core)
         from depthmap_tpu_torch.models import weights
+        download = os.environ.get("DEPTHMAP_ALLOW_DOWNLOAD") == "1"
         if state_dict is not None:
             module.load_state_dict(state_dict, strict=True)
         elif pipeline:
+            if download and not os.path.isdir(
+                    os.path.join(weights_dir, "marigold")):
+                _fetch_marigold(weights_dir)
             module.load_weights(weights_dir, seed)
         else:
             path = weights.find_checkpoint(self.model_type, weights_dir)
+            if path is None and download and \
+                    self.model_type in weights.CHECKPOINT_FILES:
+                from depthmap_tpu_torch.utils.download import \
+                    ensure_model_downloaded
+                path = ensure_model_downloaded(self.model_type, weights_dir)
             if path is not None:
                 weights.load_checkpoint(module, path)
             else:

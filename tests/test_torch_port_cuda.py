@@ -190,6 +190,37 @@ def test_flash_attention_kernel_matches_plain(case):
         assert tf32 > F32_ACCURACY, tf32
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (its phase-2 helpers; main not run)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_rescale_does_not_drift():
+    """N = 10765 (169 kv tiles), every row's max in the first tile, v
+    rising with the key index (chip_smoke.py K1_ALPHA_*): the bf16
+    kernel's signed mean error against f64 over all rows lies within
+    K1_ALPHA_SIGMAS standard errors of 0, as the plain version's does;
+    the old alpha form, restated, drifts outside."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sm = _chip_smoke()
+    d = sm.k1_alpha_drift(fa)
+    assert d["max_abs_err"] <= 2e-2
+    for name in ("kernel", "plain", "difference"):
+        mean, se = d[name]
+        assert abs(mean) <= sm.K1_ALPHA_SIGMAS * se, (name, mean, se)
+    mean, se = d["one_fma"]
+    assert abs(mean) > sm.K1_ALPHA_SIGMAS * se, (mean, se)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_a_dense_bias():
     """A dense N = 1025 bias (rows of 2050 bytes) is refused, not copied."""

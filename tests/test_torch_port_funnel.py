@@ -177,21 +177,26 @@ def test_gpu_device_needs_cuda(rng):
                                           TOptions(model_type=1)))
 
 
-def test_unported_options_raise(rng, tmp_path, monkeypatch):
-    """Background removal raises, naming its ROADMAP item; the inpainted
-    mesh is ported (gone from _NOT_PORTED): with seeded checkpoints under
-    ./models/3dphoto the funnel yields the OBJ's path after the depth.
-    Boost and Marigold (type 10) are ported: Boost on a custom depth map
-    makes no prediction, as in the JAX funnel, and build_model(10) builds
-    the pipeline (on the meta device here)."""
+def test_unported_options_raise(rng, tmp_path, monkeypatch, capsys):
+    """No option is left unported (the _NOT_PORTED table is gone).
+    Background removal without rembg prints and skips, as the JAX funnel
+    does (with a fake rembg: tests/test_torch_port_rembg.py); the
+    inpainted mesh: with seeded checkpoints under ./models/3dphoto the
+    funnel yields the OBJ's path after the depth.  Boost and Marigold
+    (type 10): Boost on a custom depth map makes no prediction, as in the
+    JAX funnel, and build_model(10) builds the pipeline (on the meta
+    device here)."""
     from depthmap_tpu_torch.models.weights import \
         save_random_inpaint_checkpoints
+    from depthmap_tpu_torch.pipeline import rembg_integration
     imgs = _images(rng, [(16, 16)])
     dm = [rng.random((16, 16))]
-    inp = TOptions(compute_device="CPU", gen_rembg=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(tcore.core_generation_funnel(None, imgs, dm, None, inp))
-    assert set(tcore._NOT_PORTED) == {"gen_rembg"}
+    monkeypatch.setattr(rembg_integration, "rembg_available", lambda: False)
+    out = list(tcore.core_generation_funnel(
+        None, imgs, dm, None, TOptions(compute_device="CPU", gen_rembg=True)))
+    assert [t for _, t, _ in out] == ["depth"]
+    assert "rembg is not installed" in capsys.readouterr().out
+    assert not hasattr(tcore, "_NOT_PORTED")
     save_random_inpaint_checkpoints(str(tmp_path / "models" / "3dphoto"))
     monkeypatch.chdir(tmp_path)
     out = list(tcore.core_generation_funnel(
@@ -202,7 +207,6 @@ def test_unported_options_raise(rng, tmp_path, monkeypatch):
     assert out[1][2] == str(tmp_path / "out" / "img-0000.obj")
     with open(out[1][2]) as f:
         assert sum(1 for line in f if line.startswith("v ")) >= 16 * 16
-    assert "boost" not in tcore._NOT_PORTED
     plain = list(tcore.core_generation_funnel(
         None, imgs, dm, None, TOptions(compute_device="CPU")))
     boosted = list(tcore.core_generation_funnel(
@@ -240,7 +244,8 @@ def test_cli_depthmap_stereo(rng, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the package (walked, so the model modules that
-    build_model loads lazily count too) and chip_smoke.py (imported as a
+    build_model loads lazily count too, and the frontends, rembg's
+    integration, utils/ and the host kernel's build) and chip_smoke.py (imported as a
     module, its main not run) import no JAX and nothing of the JAX
     package."""
     code = (
@@ -251,6 +256,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'depthmap_tpu_torch.models.efficientnet' in sys.modules\n"
+        "for new in ('frontends.api', 'frontends.gradio_ui', "
+        "'frontends.webui_script', 'pipeline.rembg_integration', "
+        "'utils.download', 'utils.metrics', 'utils.profiling', "
+        "'ops.host_build', '__main__'):\n"
+        "    assert 'depthmap_tpu_torch.' + new in names, new\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "smoke = importlib.util.module_from_spec(spec)\n"

@@ -1,11 +1,13 @@
 """Kernel K2 (depthmap_tpu_torch/ops/polylines.py) and create_stereoimages.
 
-On the CPU: the plain version is byte-exact against the reference oracle
-(tests/oracles.py stereo_polylines) and the JAX package's host C++ kernel
-(depthmap_tpu.ops.polylines.apply_stereo_divergence_polylines), on the
-cases of tests/test_polylines_pallas.py; create_stereoimages is byte-exact
-against the JAX function for all 8 modes and several balances.  The CUDA
-kernel against the plain version is in tests/test_torch_port_cuda.py.
+On the CPU: the port's host kernel (csrc/polylines_host.cpp, what CPU
+tensors run) and the plain version are byte-exact against the reference
+oracle (tests/oracles.py stereo_polylines) and the JAX package's host C++
+kernel (depthmap_tpu.ops.polylines.apply_stereo_divergence_polylines), on
+the cases of tests/test_polylines_pallas.py; create_stereoimages is
+byte-exact against the JAX function for all 8 modes and several balances.
+The CUDA kernel against the plain version is in
+tests/test_torch_port_cuda.py.
 """
 from __future__ import annotations
 
@@ -21,15 +23,23 @@ from tests.oracles import stereo_polylines
 
 
 def _check(img, nd, divpx, sep, expo, sharp):
+    """polylines_rasterize (the host kernel on CPU tensors) and
+    polylines_plain, each byte-equal to the oracle and the JAX host
+    kernel."""
     fill = "polylines_sharp" if sharp else "polylines_soft"
     nd64 = nd.astype(np.float64)
+    launches = P.polylines_host.launches
     got = P.polylines_rasterize(torch.from_numpy(img), torch.from_numpy(nd),
                                 divpx, sep, expo, sharp).numpy()
-    np.testing.assert_array_equal(
-        got, stereo_polylines(img, nd64, divpx, sep, expo, fill))
-    np.testing.assert_array_equal(
-        got, apply_stereo_divergence_polylines(img, nd64, divpx, sep, expo,
-                                               fill))
+    assert P.polylines_host.launches == launches + 1
+    plain = P.polylines_plain(torch.from_numpy(img), torch.from_numpy(nd64),
+                              divpx, sep, expo, sharp).numpy()
+    for out in (got, plain):
+        np.testing.assert_array_equal(
+            out, stereo_polylines(img, nd64, divpx, sep, expo, fill))
+        np.testing.assert_array_equal(
+            out, apply_stereo_divergence_polylines(img, nd64, divpx, sep,
+                                                   expo, fill))
     return got
 
 
@@ -225,3 +235,47 @@ def test_create_stereoimages_defaults_to_the_card(rng):
         (before[0] + 2, before[1] + 2)
     want = create_stereoimages(img, depth, 2.5, device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_cpu_stereo_runs_the_host_kernel(rng, monkeypatch):
+    """create_stereoimages on the CPU (the funnel's compute_device "CPU")
+    runs the host kernel, one call per eye, and never the plain
+    version."""
+    def refuse(*a, **kw):
+        raise AssertionError("polylines_plain ran outside the tests")
+    monkeypatch.setattr(P, "polylines_plain", refuse)
+    img = (rng.random((6, 32, 3)) * 255).astype(np.uint8)
+    depth = (rng.random((6, 32)) * 65535).astype(np.uint16)
+    before = P.polylines_host.launches
+    got = create_stereoimages(img, depth, 2.5, modes=["left-right"],
+                              device="cpu")
+    assert P.polylines_host.launches == before + 2
+    want = j_create(img, depth, 2.5, modes=["left-right"])
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+
+
+def test_host_kernel_checks_its_inputs():
+    img = torch.zeros((4, 8, 3), dtype=torch.uint8)
+    nd = torch.zeros((4, 8), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        P.polylines_host(img, nd.float(), 1.0, 0.0, 1.0, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.polylines_host(img, nd.t().contiguous().t(), 1.0, 0.0, 1.0, True)
+    with pytest.raises(ValueError, match="row width"):
+        P.polylines_host(img, nd, 6.0, 2.0, 1.0, True)
+
+
+def test_host_build_flags_and_failure(monkeypatch):
+    """FMA contraction off and no tuning for the building CPU (the JAX
+    package builds with -march=native); a missing compiler raises, it
+    never falls back to the plain version."""
+    from depthmap_tpu_torch.ops import host_build
+    assert "-ffp-contract=off" in host_build.FLAGS
+    assert not any(f.startswith("-march") for f in host_build.FLAGS)
+    monkeypatch.setattr(host_build, "_loaded", {})
+    monkeypatch.setattr(host_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        host_build.load("polylines_host")
+    img = torch.zeros((2, 8, 3), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        P.polylines_rasterize(img, torch.zeros((2, 8)), 1.0, 0.0, 1.0, True)

@@ -2,13 +2,16 @@
 """Check and time K1 (flash_attention_cuda) of the port in one or more
 source trees, on one CUDA card.
 
-    python3 tools/k1_time.py [--all] [TREE ...]
+    python3 tools/k1_time.py [--all | --alpha] [TREE ...]
 
 Each tree (default: this checkout) runs in a process of its own, which
 builds that tree's kernels, prints ptxas's report and the SASS counts of
-each kernel of K1's library (HGMMA, those on TF32 operands, FFMA), and then
-runs that tree's flash_attention_cuda on the f32 cases of chip_smoke.py's
-phase 2 (with --all, every case), on phase 2's inputs.  Per case it prints
+each kernel of K1's library (HGMMA, those on TF32 operands, FFMA) and the
+rescale check of chip_smoke.py's phase 2 (the signed mean error against
+f64 at N = 10765 of the tree's bf16 kernel, its plain version and the
+online softmax restated with each alpha form; with --alpha nothing more),
+and then runs that tree's flash_attention_cuda on the f32 cases of
+chip_smoke.py's phase 2 (with --all, every case), on phase 2's inputs.  Per case it prints
 the max abs error against the tree's plain version (f32 cases: the
 kernel's and the plain version's against softmax in f64), the time per
 call as a caller sees it (CUDA events over calls issued back to back), the
@@ -74,7 +77,7 @@ def f64_attention(q, k, v, bias):
     return torch.matmul(torch.softmax(s, -1), v.double())
 
 
-def child(tree: str, every: bool) -> None:
+def child(tree: str, mode: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from depthmap_tpu_torch.ops import cuda_build
@@ -95,9 +98,13 @@ def child(tree: str, every: bool) -> None:
     print("[k1-sass] " + json.dumps({"tree": tree,
                                      **sm.k1_sass_counts(sass)}),
           flush=True)
+    print("[k1-alpha] " + json.dumps({"tree": tree,
+                                      **sm.k1_alpha_drift(fa)}), flush=True)
+    if mode == "alpha":
+        return
     g = torch.Generator(device="cpu").manual_seed(1)
     for name, dts, b, h, n, bb, *rest in sm.K1_CASES:
-        if not every and dts != "float32":
+        if mode != "all" and dts != "float32":
             continue
         nk = rest[0] if rest else n
         dt = getattr(torch, dts)
@@ -146,7 +153,7 @@ def child(tree: str, every: bool) -> None:
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--child":
-        child(sys.argv[2], sys.argv[3] == "all")
+        child(sys.argv[2], sys.argv[3])
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -156,11 +163,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     args = sys.argv[1:]
-    every = "--all" in args
-    trees = [a for a in args if a != "--all"] or [ROOT]
+    mode = "all" if "--all" in args else \
+        "alpha" if "--alpha" in args else "f32"
+    trees = [a for a in args if a not in ("--all", "--alpha")] or [ROOT]
     for tree in trees:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        tree, "all" if every else "f32"], check=True)
+                        tree, mode], check=True)
     return 0
 
 
