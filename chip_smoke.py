@@ -148,8 +148,31 @@ and prints no result):
      depthmap_tpu_torch.cli --serve` in a process of its own (its PNGs
      equal, the process stopped); the UI's run_generate on BEiT + stereo
      (24 K1 launches); the host polylines kernel byte-equal to K2 on a
-     1080p eye and to polylines_plain at 270 x 480, with each one's ms.
-Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17) sets every kernel
+     1080p eye and to polylines_plain at 270 x 480, with each one's ms;
+ 18. parallel/, the train step and the graft entry: (a) K1's gradient
+     (FlashAttentionFunction: K1's forward, the backward in torch) at the
+     train step's (2, 16, 1025) with a shared bias that requires grad and
+     at (4, 12, 1025) bias-free, f32: dq, dk, dv, dbias against autograd
+     in f64 within K1_GRAD_BOUND, which a detached output (the parent's)
+     and a backward without its rowsum term each break, and the
+     backward's ms beside the forward's; (d) entry()'s forward (BEiT-L
+     512, f32, 24 K1 launches, a finite map); (b) the train step on that
+     model at full width: a (1, 1) mesh over NCCL at world 1, Adam 1e-4,
+     2 x 512^2, TRAIN_STEPS steps, each a finite loss and 24 K1 f32
+     launches, step 1's loss and gradients against the same step with
+     attention through the plain version (TRAIN_*_RTOL), the rel-pos
+     tables', qkv's, q_bias's and v_bias's gradients non-zero, s per step
+     and peak memory; (c) each split forced over [cuda:0, cuda:0] against
+     its unsplit run, with both ms: predict_batch (BEiT-L 512 bf16, 4 x
+     512^2, 48 K1 launches; byte-equal to its shards run unsplit, within
+     SPLIT_BF16_* of the whole batch), Boost on a textured 384 x 512
+     image at r_max 1024 (SPLIT_BOOST_ATOL), Marigold's members at res 64, ensemble 4, 2
+     steps, f32 (byte-equal to its shards, within SPLIT_MARIGOLD_ATOL of
+     the whole), K2's rows on phase 3's 1080p eye (byte-equal, 2 sorts
+     and 2 sweeps); (d) dryrun_multichip(2) on the CPU (gloo).  Every K1
+     shape of 18b-18d must be a phase-2 case.  One card: cross-card NCCL
+     is not measured.
+Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17, 18) sets every kernel
 count to 0 just before each timed run and reads it just after.  With
 --profile, torch.profiler over one warm funnel run per path (video mode:
 one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
@@ -247,6 +270,10 @@ BOOST_CHAIN_TOL = 2e-5
 # bytes/s, bf16 and TF32 tensor-core and f32 CUDA-core flop/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+
+
+# what a later phase reuses: phase 3's timed eye, phase 14's weights
+_KEEP = {}
 
 
 def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
@@ -466,7 +493,54 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
     ("bf16_b8_h12_n1825_none", "bfloat16", 8, 12, 1825, None),
     ("bf16_b4_h12_n1825_none", "bfloat16", 4, 12, 1825, None),
     ("bf16_b1_h12_n1377_none", "bfloat16", 1, 12, 1377, None),
+    # phase 18: the train step's forward (BEiT-L 512 in f32, batch 2);
+    # Boost's whole image at R_x 1024 on the 4:3 input (1024 x 768: 64 x
+    # 48 + 1); Marigold at res 64 on a 4:3 input (latent 8 x 6: levels of
+    # 48, 12, 4 and 1 tokens), its members split over two devices (batch
+    # 2) and unsplit (4), f32.  Phase 18 fails on a K1 shape of its paths
+    # that is not a case here (``k1_shapes``).
+    ("f32_b2_h16_n1025_shared", "float32", 2, 16, 1025, 1),
+    ("bf16_b1_h16_n3073_shared", "bfloat16", 1, 16, 3073, 1),
+    *[(f"f32_b{b}_h{h}_n{n}_{kind}", "float32", b, h, n, None,
+       *((77,) if kind == "cross77" else ()))
+      for b in (2, 4) for kind in ("self", "cross77")
+      for h, n in ((5, 48), (10, 12), (20, 4), (20, 1))],
 ]
+
+
+def k1_case_key(dtype: str, b, h, n, nk, bias_batch) -> tuple:
+    """A K1 call's shape: (dtype, B, H, N, Nk, bias batch or None)."""
+    return (dtype, b, h, n, nk, bias_batch)
+
+
+class k1_shapes:
+    """Inside: ``seen`` gathers the shape (``k1_case_key``) of every K1
+    launch, for the check that phase 2 held each against the plain
+    version.  Records, launches nothing."""
+
+    def __enter__(self):
+        from depthmap_tpu_torch.ops import flash_attention as fa
+        self.orig, self.seen = fa._forward, set()
+
+        def record(q, k, v, bias, scale):
+            if q.is_cuda:
+                self.seen.add(k1_case_key(
+                    str(q.dtype)[6:], *q.shape[:3], k.shape[2],
+                    None if bias is None else bias.shape[0]))
+            return self.orig(q, k, v, bias, scale)
+        fa._forward = record
+        return self
+
+    def __exit__(self, *exc):
+        from depthmap_tpu_torch.ops import flash_attention as fa
+        fa._forward = self.orig
+
+
+def k1_shapes_not_held(seen) -> list:
+    """The shapes in ``seen`` that no K1_CASES row holds."""
+    held = {k1_case_key(dt, b, h, n, rest[0] if rest else n, bb)
+            for _, dt, b, h, n, bb, *rest in K1_CASES}
+    return sorted(seen - held, key=str)
 
 
 def k1_bound(b, h, n, nk, bias_batch, dtype):
@@ -813,6 +887,8 @@ def phase_k2():
                                  "version")
         if rows == 1080 and depth == "random" and sharp and abs(div) == 24.0:
             timed.append((ms, plain_ms))
+            if div > 0:   # phase 18's split is held to this eye
+                _KEEP["k2_eye"] = (img, m, div, got)
     return worst, dict(ms=sum(t[0] for t in timed) / len(timed),
                        plain_ms=sum(t[1] for t in timed) / len(timed),
                        library_ms=None, bound_ms=bound_ms, bound_by=basis)
@@ -1623,6 +1699,7 @@ def phase_marigold(profile: bool = False):
     from depthmap_tpu_torch.models.weights import init_random_
     t0 = time.perf_counter()
     sd = init_random_(build_marigold(), seed=4).state_dict()
+    _KEEP["marigold_sd"] = sd      # phase 18's split runs these weights
     log("14-marigold", weights=len(sd),
         params_M=f"{sum(t.numel() for t in sd.values()) / 1e6:.1f}",
         init_s=f"{time.perf_counter() - t0:.2f}")
@@ -2394,6 +2471,501 @@ def phase_rest(profile: bool = False):
     return k1_by_path, k2_by_path
 
 
+# -- phase 18: K1's gradient, the train step, the splits, the graft entry ---
+
+# K1's gradient (phase 18a): dq, dk, dv and dbias of FlashAttentionFunction
+# (K1's f32 body forward, the backward in f32 torch) against the function's
+# own by autograd in f64, each within this share of the gradient's largest
+# magnitude.  The split-TF32 forward errs ~1e-6 of its outputs and the f32
+# backward a few ulps of its sums; a detached output (no gradient at all,
+# the parent's behaviour) and a backward without the rowsum term D each
+# break it.
+K1_GRAD_BOUND = 1e-4
+# (name, batch, heads, N, bias batch): the train step's BEiT-L call, one
+# bias shared by the batch and requiring grad; a bias-free ViT-B shape
+K1_GRAD_CASES = [("f32_b2_h16_n1025_shared", 2, 16, 1025, 1),
+                 ("f32_b4_h12_n1025_none", 4, 12, 1025, 0)]
+# the train step's loss and gradients (phase 18b) against the same step with
+# attention through the plain version: K1's f32 forward errs <= 5e-5 of an
+# attention output (K1_F32_ACCURACY), ~1e-6 typically; the loss takes
+# log(max(pred, 0) + 1e-3), whose gradient moves by d / 1e-3 of itself
+# where pred is near 0 and the forwards differ by d, so a parameter's
+# gradient may move by ~1e-3 of its largest (tests/test_torch_port_train
+# .py, STEP_GRAD_RTOL); 2e-2 leaves room for 24 blocks at full width
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_STEPS = 3
+# a split over [cuda:0, cuda:0] against the unsplit bf16 forward of the
+# whole batch: each shard's GEMMs run at half the rows, where cuBLAS may
+# take other kernels and sum in another order, and a bf16 output rounds
+# (2^-8) after each; max |d| within 5e-2 and the mean within 5e-3 of the
+# map's range.  Against the same shards run unsplit: byte-equal.
+SPLIT_BF16_RTOL = 5e-2
+SPLIT_BF16_MEAN_RTOL = 5e-3
+# Marigold's members, split against unsplit, f32 (maps in [0, 1])
+SPLIT_MARIGOLD_ATOL = 1e-4
+# Boost's map, split against unsplit (maps in [0, 1]): the JAX dryrun's
+# bound.  Each device's share of a chunk is an unsplit chunk, but the
+# crops' and the blend's resamplers sum with atomics on the card, so two
+# runs of one chunk may differ in the last bits
+SPLIT_BOOST_ATOL = 1e-5
+
+
+def k1_grad_reference(ins, dout):
+    """dq, dk, dv (, dbias) of softmax(q.k^T / 8 + bias).v by autograd in
+    f64 (the plain version's function), from f32 inputs."""
+    import torch
+    ref = [t.detach().double().requires_grad_() for t in ins]
+    s = ref[0] @ ref[1].transpose(-1, -2) * 64 ** -0.5
+    if len(ref) > 3:
+        s = s + ref[3]
+    out = torch.softmax(s, -1) @ ref[2]
+    return torch.autograd.grad((out * dout.double()).sum(), ref)
+
+
+def k1_grads_without_rowsum(q, k, v, bias, dout):
+    """A planted fault: the backward with dS = P * dP (the rowsum term D
+    left out), summed over the batch for a shared bias."""
+    import torch
+    s = q @ k.transpose(-1, -2) * 64 ** -0.5
+    if bias is not None:
+        s = s + bias
+    p = torch.softmax(s, -1)
+    ds = p * (dout @ v.transpose(-1, -2))
+    grads = [ds @ k * 64 ** -0.5, ds.transpose(-1, -2) @ q * 64 ** -0.5,
+             p.transpose(-1, -2) @ dout]
+    if bias is not None:
+        grads.append(ds.sum(0, keepdim=True) if bias.shape[0] == 1 else ds)
+    return grads
+
+
+def grad_error(got, want) -> float:
+    """The largest error of any gradient as a share of its largest
+    magnitude."""
+    return max((g.double() - w).abs().max().item() / w.abs().max().item()
+               for g, w in zip(got, want))
+
+
+def phase_k1_grad():
+    """K1's gradient at the train shapes (18a): the Function's dq, dk, dv,
+    dbias against autograd in f64, two planted faults, and the backward's
+    ms beside the forward's, autograd through the plain version's, and
+    SDPA efficient's forward + backward (a yardstick; the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(18)
+    out_rows = []
+    for name, b, h, n, bb in K1_GRAD_CASES:
+        def mk(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g) * scale).cuda()
+        q, k = mk(b, h, n, 64, scale=K1_Q_SCALE), mk(b, h, n, 64)
+        v = mk(b, h, n, 64, scale=K1_V_SCALE)
+        dense = mk(bb, h, n, n) if bb else None
+        dout = mk(b, h, n, 64)
+        ins = [t.requires_grad_() for t in (q, k, v)] + (
+            [dense.requires_grad_()] if bb else [])
+
+        def biased():
+            return fa.pad_bias_rows(dense) if bb else None
+        before = fa.flash_attention_cuda.launches_by_dtype["float32"]
+        out = fa.flash_attention(q, k, v, biased())
+        launched = fa.flash_attention_cuda.launches_by_dtype["float32"] - \
+            before
+        if launched != 1 or out.grad_fn is None:
+            raise AssertionError(f"18a {name}: K1's f32 body launched "
+                                 f"{launched} times, grad_fn {out.grad_fn}")
+        got = torch.autograd.grad((out * dout).sum(), ins)
+        want = k1_grad_reference(ins, dout)
+        err = grad_error(got, want)
+        # the parent's output: no graph, so no gradient reaches an input
+        assert not out.detach().requires_grad
+        faults = {
+            "detached": grad_error([torch.zeros_like(w) for w in want],
+                                   want),
+            "no_rowsum": grad_error(k1_grads_without_rowsum(
+                *(t.detach() for t in (q, k, v)),
+                dense.detach() if bb else None, dout), want)}
+        del want
+        torch.cuda.empty_cache()
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        bias_d = fa.pad_bias_rows(dense.detach()) if bb else None
+        outd = out.detach()
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_cuda(qd, kd, vd, bias_d),
+                         10)
+        bwd_ms = cuda_ms(lambda: fa.attention_grads(qd, kd, vd, bias_d, outd,
+                                                    dout, 0.125), 5)
+
+        def fwd_bwd(fn):
+            def call():
+                o = fn(q, k, v, biased())
+                return torch.autograd.grad((o * dout).sum(), ins)
+            return call
+        both_ms = cuda_ms(fwd_bwd(fa.flash_attention), 5)
+        plain_ms = cuda_ms(fwd_bwd(fa.flash_attention_plain), 3)
+        try:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                sdpa_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention),
+                                  5)
+            sdpa_ms = f"{sdpa_ms:.4f}"
+        except RuntimeError:
+            sdpa_ms = "refused"
+        # the backward's bytes: q, k, v, O, dO (and the bias) read, dq, dk,
+        # dv (and dbias) written, and P recomputed: 4 B N D (1 + 1 + 1) for
+        # q.k^T, dO.v^T, dS.k, dS^T.q, P^T.dO: 5 products of 2 B H N N D
+        nbytes = 4 * (8 * b * h * n * 64 + (2 * bb * h * n * n if bb else 0))
+        flops = 5 * 2 * b * h * n * n * 64
+        bwd_bound, basis = bound(nbytes, flops, "float32")
+        fwd_bound = k1_bound(b, h, n, n, bb, "float32")[1]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("18a-k1-grad", case=name, rel_err=f"{err:.3e}",
+            bound=K1_GRAD_BOUND,
+            **{f"fault_{f}_rel_err": f"{e:.3e}" for f, e in faults.items()},
+            fwd_ms=f"{fwd_ms:.4f}",
+            fwd_split_tf32_bound_us=f"{fwd_bound[0] * 1e3:.1f}",
+            fwd_bound_by=fwd_bound[1], bwd_ms=f"{bwd_ms:.4f}",
+            fwd_bwd_ms=f"{both_ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+            sdpa_efficient_fwd_bwd_ms=sdpa_ms,
+            bwd_bound_us=f"{bwd_bound * 1e3:.1f}", bwd_bound_by=basis,
+            bwd_share_of_f32_bound=f"{bwd_bound / bwd_ms:.3f}",
+            max_memory_allocated_GiB=f"{peak:.3f}")
+        if not err <= K1_GRAD_BOUND:
+            raise AssertionError(f"18a {name}: gradient error {err} > "
+                                 f"{K1_GRAD_BOUND}")
+        if not min(faults.values()) > K1_GRAD_BOUND:
+            raise AssertionError(f"18a {name}: a planted fault passes the "
+                                 f"bound: {faults}")
+        out_rows.append(dict(case=name, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                             rel_err=err))
+        del q, k, v, dense, dout, ins, out, got, outd, bias_d
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+class plain_attention:
+    """Inside: every ViT attention runs flash_attention_plain (autograd
+    through its own ops), for the train step's reference only."""
+
+    def __enter__(self):
+        from depthmap_tpu_torch.models import attention as att
+        from depthmap_tpu_torch.ops import flash_attention as fa
+        self.orig = att.flash_attention
+        att.flash_attention = fa.flash_attention_plain
+
+    def __exit__(self, *exc):
+        from depthmap_tpu_torch.models import attention as att
+        att.flash_attention = self.orig
+
+
+def phase_train_step():
+    """The graft entry on the card (18d: its forward, 24 K1 f32 launches,
+    a finite map), then the train step at full width (18b) on the entry's
+    model: dpt_beit_large_512 in f32 on a (1, 1) mesh over NCCL at world
+    1, Adam 1e-4, a batch of 2 x 512^2 (images ~ N(0, 1), targets U(0, 1)
+    + 0.5, as the dryrun draws them); step 1's loss and gradients against
+    the same step with attention through the plain version; TRAIN_STEPS
+    timed steps, each with its counts set to 0 just before it: a finite
+    loss and 24 K1 f32 launches (the forward's; the backward launches
+    none).  Returns the entry's and the steps' K1 launches and the model."""
+    import functools
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from depthmap_tpu_torch import graft_entry
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.parallel import mesh as pm
+    from depthmap_tpu_torch.parallel.train import depth_loss, make_train_step
+    t0 = time.perf_counter()
+    fn, (module, x) = graft_entry.entry()
+    build_s = time.perf_counter() - t0
+    fn(module, x)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    depth = fn(module, x)
+    torch.cuda.synchronize()
+    entry_ms = (time.perf_counter() - t0) * 1e3
+    entry_k1 = fa.flash_attention_cuda.launches_by_dtype["float32"]
+    log("18d-entry", build_s=f"{build_s:.2f}", forward_ms=f"{entry_ms:.2f}",
+        shape=tuple(depth.shape), dtype=str(depth.dtype),
+        k1_f32_launches=entry_k1, finite=bool(torch.isfinite(depth).all()))
+    if tuple(depth.shape) != (1, 512, 512) or \
+            not torch.isfinite(depth).all() or entry_k1 != 24 or \
+            fa.flash_attention_cuda.launches != 24:
+        raise AssertionError(f"18d: entry() gave {tuple(depth.shape)}, K1 "
+                             f"{fa.flash_attention_cuda.launches_by_dtype}")
+    del depth, x
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(size=(2, 512, 512, 3)).transpose(
+        0, 3, 1, 2).astype(np.float32)).contiguous().cuda()
+    targets = torch.from_numpy((rng.random((2, 512, 512)) + 0.5).astype(
+        np.float32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_attention():
+        ref_loss = depth_loss(module(images), targets)
+        ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    ref = {k: p.grad for k, p in module.named_parameters()}
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    module.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    launches = 0
+    with tempfile.TemporaryDirectory() as store:
+        pm.init_process_group(0, 1, store, "cuda", 300.0)
+        try:
+            mesh = pm.make_mesh(1, 1, "cuda")
+            step = make_train_step(module, functools.partial(
+                torch.optim.Adam, lr=1e-4), mesh)
+            for i in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                t0 = time.perf_counter()
+                loss = float(step(images, targets))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                k1 = fa.flash_attention_cuda.launches
+                k1_f32 = fa.flash_attention_cuda.launches_by_dtype["float32"]
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                extra = {}
+                if i == 0:
+                    errs = {k: grad_error([p.grad], [ref[k]])
+                            if ref[k].abs().max().item() > 0 else
+                            p.grad.abs().max().item()
+                            for k, p in module.named_parameters()}
+                    worst = max(errs, key=errs.get)
+                    watched = [k for k in errs if k.endswith((
+                        "relative_position_bias_table", "qkv.weight",
+                        "q_bias", "v_bias"))]
+                    zero = [k for k in watched
+                            if not ref[k].abs().max().item() > 0 or
+                            not module.get_parameter(k).grad.abs().max()
+                            .item() > 0]
+                    extra = dict(ref_loss=f"{ref_loss:.6f}",
+                                 grad_rel_err_max=f"{errs[worst]:.3e}",
+                                 grad_worst=worst, grads_checked=len(errs),
+                                 watched_nonzero=len(watched) - len(zero),
+                                 ref_peak_GiB=f"{ref_peak:.3f}")
+                log("18b-train", step=i + 1, loss=f"{loss:.6f}",
+                    s_per_step=f"{seconds:.3f}", k1_launches=k1,
+                    k1_f32_launches=k1_f32,
+                    max_memory_allocated_GiB=f"{peak:.3f}", **extra)
+                if not np.isfinite(loss) or k1 != 24 or k1_f32 != 24:
+                    raise AssertionError(f"18b step {i + 1}: loss {loss}, "
+                                         f"K1 {k1} ({k1_f32} f32)")
+                if i == 0:
+                    if abs(loss - ref_loss) > TRAIN_LOSS_RTOL * abs(ref_loss):
+                        raise AssertionError(f"18b: loss {loss} against the "
+                                             f"plain version's {ref_loss}")
+                    if errs[worst] > TRAIN_GRAD_RTOL:
+                        raise AssertionError(f"18b: {worst}'s gradient errs "
+                                             f"{errs[worst]}")
+                    if len(watched) != 4 * 24 or zero:
+                        raise AssertionError(f"18b: {len(watched)} watched, "
+                                             f"zero gradients: {zero}")
+                    del ref
+                launches += k1
+        finally:
+            dist.destroy_process_group()
+    del step, images, targets
+    module.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return entry_k1, launches, module
+
+
+def _timed(fn, runs: int = 1):
+    """(fn()'s output, its mean ms over ``runs`` calls, host clock to a
+    synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / runs
+
+
+def _bf16_close(label, got, want):
+    import numpy as np
+    span = float(np.ptp(want))
+    d = np.abs(got - want)
+    if not (span > 0 and d.max() <= SPLIT_BF16_RTOL * span and
+            d.mean() <= SPLIT_BF16_MEAN_RTOL * span):
+        raise AssertionError(f"18c {label}: split vs unsplit max "
+                             f"{d.max() / span:.3e}, mean "
+                             f"{d.mean() / span:.3e} of the range")
+    return f"{d.max() / span:.3e}", f"{d.mean() / span:.3e}"
+
+
+def phase_splits(module, device: str = "cuda:0"):
+    """Each split forced over [cuda:0, cuda:0] (one card: the math of the
+    split, not its speed) against its unsplit run, with ms for both and
+    the split run's launches counted from 0 (18c): predict_batch of
+    BEiT-L 512 bf16 (phase 18b's weights) on 4 x 512^2; Boost on it on a
+    textured 384 x 512 image at r_max 1024; Marigold's members at res 64, ensemble 4, 2
+    steps, f32 (phase 14's weights); K2's rows on phase 3's 1080p eye."""
+    import dataclasses
+    import functools
+    from unittest import mock
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.models.marigold.pipeline import MarigoldPipeline
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.ops import polylines as pl
+    from depthmap_tpu_torch.parallel import mesh
+    from depthmap_tpu_torch.pipeline.boost import BoostEngine
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    one = [torch.device(device)]
+    two = one * 2
+    launches = {}
+    with torch.device("meta"):
+        bundle = dataclasses.replace(build_model(1), module=module)
+    pred = DepthPredictor(1, state_dict=module.state_dict(), bundle=bundle,
+                          device=device, devices=two)
+    frames = np.stack(_test_images(40, [(512, 512)] * 4)).astype(
+        np.float32) / 255.0
+    pred.predict_batch(frames, 512, 512)
+    _zero_counts()
+    split = pred.predict_batch(frames, 512, 512)
+    launches["split_predict_batch"] = fa.flash_attention_cuda.launches
+    _, split_ms = _timed(lambda: pred.predict_batch(frames, 512, 512), 3)
+    pred.devices = one
+    pred.predict_batch(frames, 512, 512)     # the whole batch's shapes warm
+    halves, halves_ms = _timed(lambda: np.concatenate(
+        [pred.predict_batch(frames[:2], 512, 512),
+         pred.predict_batch(frames[2:], 512, 512)]), 3)
+    whole, whole_ms = _timed(lambda: pred.predict_batch(frames, 512, 512),
+                             3)
+    mx, mean = _bf16_close("predict_batch", split, whole)
+    log("18c-split", path="predict_batch", model="dpt_beit_large_512",
+        dtype=str(pred.compute_dtype), frames=4,
+        devices=",".join(map(str, two)),
+        k1_launches=launches["split_predict_batch"], split_ms=f"{split_ms:.2f}",
+        unsplit_ms=f"{whole_ms:.2f}", halves_ms=f"{halves_ms:.2f}",
+        equal_to_halves=bool(np.array_equal(split, halves)),
+        max_rel=mx, mean_rel=mean)
+    if launches["split_predict_batch"] != 48 or \
+            not np.array_equal(split, halves):
+        raise AssertionError("18c predict_batch: K1 "
+                             f"{launches['split_predict_batch']}, or the "
+                             "split differs from its shards run unsplit")
+
+    img = _textured(31, 384, 512).astype(np.float32) / 255.0
+    engine = BoostEngine(pred, seed=3)
+    pred.devices = two
+    estimate = functools.partial(engine.estimate, img,
+                                 whole_size_threshold=1024)
+    estimate()
+    _zero_counts()
+    boost_split, boost_split_ms = _timed(estimate)
+    launches["split_boost"] = fa.flash_attention_cuda.launches
+    run = dict(engine.last_run)
+    pred.devices = one
+    boost_one, boost_ms = _timed(estimate)
+    d = float(np.abs(boost_split - boost_one).max())
+    log("18c-split", path="boost", model="dpt_beit_large_512",
+        size="384x512", R_x=run["whole_size"], patches=run["patches"],
+        chunks=run["chunks"], k1_launches=launches["split_boost"],
+        split_ms=f"{boost_split_ms:.2f}", unsplit_ms=f"{boost_ms:.2f}",
+        max_abs_diff=f"{d:.3e}", atol=SPLIT_BOOST_ATOL)
+    want = 24 * (2 + 2 * 2 * run["chunks"])
+    if launches["split_boost"] != want or not d <= SPLIT_BOOST_ATOL:
+        raise AssertionError(f"18c Boost: K1 {launches['split_boost']} "
+                             f"(expected {want}), or the split differs")
+    del pred, engine
+    torch.cuda.empty_cache()
+
+    pipe = empty_bundle(10).module
+    pipe.load_state_dict(_KEEP.pop("marigold_sd"))
+    pipe = pipe.cuda().eval()
+    mimg = _test_images(41, [(48, 64)])[0].astype(np.float32) / 255.0
+    noise = torch.randn((4, 4, 6, 8), generator=torch.Generator()
+                        .manual_seed(41))
+    members = lambda **kw: pipe.members(mimg, processing_res=64,  # noqa
+                                        ensemble_size=4, denoising_steps=2,
+                                        **kw)
+    if MarigoldPipeline.ensemble_devices(4, two) != two:
+        raise AssertionError("18c Marigold: 4 members do not split over 2")
+    members(noise=noise, devices=two)
+    _zero_counts()
+    m_split, m_split_ms = _timed(lambda: members(noise=noise, devices=two))
+    launches["split_marigold"] = fa.flash_attention_cuda.launches
+    m_halves = np.concatenate([pipe.members(
+        mimg, processing_res=64, ensemble_size=2, denoising_steps=2,
+        noise=z) for z in noise.chunk(2)])
+    members(noise=noise)                      # the whole batch's shapes warm
+    m_one, m_ms = _timed(lambda: members(noise=noise))
+    d = float(np.abs(m_split - m_one).max())
+    log("18c-split", path="marigold_members", res=64, ensemble=4, steps=2,
+        dtype=str(pipe.compute_dtype), k1_launches=launches["split_marigold"],
+        split_ms=f"{m_split_ms:.2f}", unsplit_ms=f"{m_ms:.2f}",
+        max_abs_diff=f"{d:.3e}", atol=SPLIT_MARIGOLD_ATOL,
+        equal_to_halves=bool(np.array_equal(m_split, m_halves)))
+    if launches["split_marigold"] != 32 * 2 * 2 or \
+            not d <= SPLIT_MARIGOLD_ATOL or m_split.shape != (4, 48, 64) \
+            or not np.array_equal(m_split, m_halves):
+        raise AssertionError(f"18c Marigold: K1 "
+                             f"{launches['split_marigold']}, max |d| {d}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    eye_img, eye_nd, div, eye = _KEEP.pop("k2_eye")
+    args = (div, 0.0, 1.0, True)
+    eye_ms = cuda_ms(lambda: pl.polylines_rasterize(
+        eye_img, eye_nd, *args, shard=False), 5)
+    # two visible cards, as the row split sees them: the one card twice
+    with mock.patch.object(mesh, "local_devices", lambda device="cuda": two):
+        pl.polylines_rasterize(eye_img, eye_nd, *args)
+        _zero_counts()
+        eye_split = pl.polylines_rasterize(eye_img, eye_nd, *args)
+        torch.cuda.synchronize()
+        launches["split_k2"] = (pl._sort_cuda.launches,
+                                pl._sweep_cuda.launches)
+        eye_split_ms = cuda_ms(lambda: pl.polylines_rasterize(
+            eye_img, eye_nd, *args), 5)
+    ndiff = int((eye_split != eye).sum())
+    log("18c-split", path="k2_rows", shape="1080x1920", divergence_px=div,
+        sorts=launches["split_k2"][0], sweeps=launches["split_k2"][1],
+        split_ms=f"{eye_split_ms:.3f}", unsplit_ms=f"{eye_ms:.3f}",
+        bytes_differ=ndiff)
+    if ndiff or launches["split_k2"] != (2, 2):
+        raise AssertionError(f"18c K2: {ndiff} bytes differ from phase 3's "
+                             f"eye, launches {launches['split_k2']}")
+    return launches
+
+
+def phase_parallel():
+    """Phase 18: K1's gradient (18a), the train step (18b) with the graft
+    entry's forward (18d) first, the splits over a repeated card (18c),
+    then dryrun_multichip(2) on the CPU (18d)."""
+    import torch
+    from depthmap_tpu_torch import graft_entry
+    k1_grad = phase_k1_grad()
+    with k1_shapes() as shapes:
+        entry_k1, train_k1, module = phase_train_step()
+        launches = phase_splits(module)
+    del module
+    torch.cuda.empty_cache()
+    missing = k1_shapes_not_held(shapes.seen)
+    log("18-k1-shapes", seen=len(shapes.seen), not_in_phase_2=missing)
+    if missing:
+        raise AssertionError(f"18: K1 ran at shapes phase 2 does not hold "
+                             f"against the plain version: {missing}")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2)
+    log("18d-dryrun", n_devices=2, s=f"{time.perf_counter() - t0:.1f}")
+    k1_by_path = {"graft_entry": entry_k1, "train_step_beit_large_512":
+                  train_k1, "split_predict_batch":
+                  launches["split_predict_batch"],
+                  "split_boost": launches["split_boost"],
+                  "split_marigold": launches["split_marigold"]}
+    return k1_by_path, launches["split_k2"][1], k1_grad
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -2434,6 +3006,11 @@ def main() -> int:
     k1_rest, k2_rest = timed("17", phase_rest, profile)
     k1_by_path.update(k1_rest)
     k2_by_path.update(k2_rest)
+    k1_parallel, k2_by_path["split_1080p_eye"], k1_grad = timed(
+        "18", phase_parallel)
+    k1_by_path.update(k1_parallel)
+    k1_f32_by_path.update(train_step_beit_large_512=k1_parallel[
+        "train_step_beit_large_512"], graft_entry=k1_parallel["graft_entry"])
     log("phases", seconds=seconds)
     import torch
 
@@ -2452,6 +3029,7 @@ def main() -> int:
             sum(k1_by_path.values()), k1_err, k1,
             device_ms=k1["device_ms"], launches_by_path=k1_by_path,
             launches_f32_by_path=k1_f32_by_path, f32_main=k1_f32,
+            gradient=k1_grad,
             bf16_alpha_signed_mean=k1_alpha["kernel"][0],
             bf16_alpha_stderr=k1_alpha["kernel"][1]),
         # K2's launches: its sweep's, one per eye of the BEiT paths' (the

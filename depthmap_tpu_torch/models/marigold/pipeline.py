@@ -15,7 +15,12 @@ in f32 on the bf16-rounded weights from its first time-embedding add on
 (``unet.py``).  The initial noise comes from a ``torch.Generator`` on the
 module's device seeded with ``seed`` (``noise=`` injects it).  The
 resizes of the image and of the result are cv2's INTER_CUBIC, restated
-(``ops/resize.py``).
+(``ops/resize.py``).  Given a list of ``devices``, the members are split
+over the largest number of them that divides the member count (the JAX
+package's ``_shard_ensemble``; a CPU list only under
+DEPTHMAP_SHARD_ENSEMBLE=1), each share denoised by the pipeline's copy on
+its device, after the noise of every member is drawn on the pipeline's
+own device, so a member's latents do not depend on where it runs.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from depthmap_tpu_torch.models.marigold.ddim import DDIMScheduler
 from depthmap_tpu_torch.models.marigold.unet import MarigoldUNet
 from depthmap_tpu_torch.models.marigold.vae import VAE_SCALE, AutoencoderKL
 from depthmap_tpu_torch.ops.resize import cv2_resize_cubic
+from depthmap_tpu_torch.parallel.mesh import canonical, replica, split_run
 
 CONTEXT_LEN = 77
 
@@ -117,14 +123,32 @@ class MarigoldPipeline(nn.Module):
         depth = depth.to(torch.float32).mean(1)
         return torch.clamp(depth * 0.5 + 0.5, 0.0, 1.0)
 
-    def forward(self, rgb01: np.ndarray, processing_res: int = 768,
+    @staticmethod
+    def ensemble_devices(members: int, devices) -> list:
+        """The devices the members split over: the largest number of
+        ``devices`` that divides ``members``; [] for no split (fewer than
+        two, one member, or a CPU list without DEPTHMAP_SHARD_ENSEMBLE=1,
+        as in the JAX package, where only the multichip dryrun asks)."""
+        devices = [canonical(d) for d in devices or ()]
+        if len(devices) <= 1 or members < 2:
+            return []
+        if devices[0].type == "cpu" and \
+                os.environ.get("DEPTHMAP_SHARD_ENSEMBLE") != "1":
+            return []
+        d = max(k for k in range(1, min(members, len(devices)) + 1)
+                if members % k == 0)
+        return devices[:d] if d > 1 else []
+
+    def members(self, rgb01: np.ndarray, processing_res: int = 768,
                 ensemble_size: int = 5, denoising_steps: int = 12,
-                seed: int = 0, match_input_res: bool = False,
-                noise: Optional[torch.Tensor] = None) -> np.ndarray:
-        """rgb01: (H, W, 3) float in [0, 1] -> (h', w') depth in [0, 1]
-        (the input size with ``match_input_res``).  ``noise``: the
-        (ensemble, 4, h'/8, w'/8) initial latents, else drawn from
-        ``seed``."""
+                seed: int = 0, noise: Optional[torch.Tensor] = None,
+                devices=None) -> np.ndarray:
+        """The ensemble's members before alignment: rgb01 (H, W, 3) float
+        in [0, 1] -> (ensemble, h', w') depths in [0, 1], h' and w' the
+        processing size.  ``noise``: the (ensemble, 4, h'/8, w'/8)
+        initial latents, else drawn from ``seed`` on the pipeline's
+        device.  ``devices``: split the members over them
+        (``ensemble_devices``)."""
         h, w = rgb01.shape[:2]
         scale = processing_res / max(h, w)
         nh = max(int(round(h * scale / 8)) * 8, 8)
@@ -135,10 +159,25 @@ class MarigoldPipeline(nn.Module):
         batch = x.permute(2, 0, 1)[None].expand(ensemble_size, -1, -1, -1)
         if noise is None:
             noise = self.draw_noise(ensemble_size, nh // 8, nw // 8, seed)
-        preds = self.single_infer(batch, denoising_steps,
-                                  torch.as_tensor(noise)).cpu().numpy()
+        return split_run(
+            lambda b, z: replica(self, b.device).single_infer(
+                b, denoising_steps, z),
+            self.ensemble_devices(ensemble_size, devices), batch,
+            torch.as_tensor(noise).to(batch.device)).cpu().numpy()
+
+    def forward(self, rgb01: np.ndarray, processing_res: int = 768,
+                ensemble_size: int = 5, denoising_steps: int = 12,
+                seed: int = 0, match_input_res: bool = False,
+                noise: Optional[torch.Tensor] = None,
+                devices=None) -> np.ndarray:
+        """rgb01: (H, W, 3) float in [0, 1] -> (h', w') depth in [0, 1]
+        (the input size with ``match_input_res``): ``members`` (the
+        arguments are its), then their alignment on the host."""
+        preds = self.members(rgb01, processing_res, ensemble_size,
+                             denoising_steps, seed, noise, devices)
         depth = ensemble_depths(preds) if ensemble_size > 1 else preds[0]
         if match_input_res:
+            h, w = rgb01.shape[:2]
             depth = cv2_resize_cubic(depth, (w, h))
         return depth
 

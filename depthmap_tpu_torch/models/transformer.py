@@ -67,13 +67,13 @@ class BeitAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, bias: Optional[torch.Tensor] = None):
-        b, n, c = x.shape
+        b, n, _ = x.shape
         h = self.num_heads
         qkv_bias = torch.cat([self.q_bias, self.k_bias, self.v_bias])
         qkv = F.linear(x, self.qkv.weight, qkv_bias)
-        qkv = qkv.reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        qkv = qkv.reshape(b, n, 3, h, -1).permute(2, 0, 3, 1, 4)
         out = attention(qkv[0], qkv[1], qkv[2], bias=bias)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return self.proj(out.transpose(1, 2).reshape(b, n, -1))
 
 
 class Block(nn.Module):
@@ -106,11 +106,11 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        b, n, c = x.shape
+        b, n, _ = x.shape
         h = self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x).reshape(b, n, 3, h, -1).permute(2, 0, 3, 1, 4)
         out = attention(qkv[0], qkv[1], qkv[2])
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return self.proj(out.transpose(1, 2).reshape(b, n, -1))
 
 
 class VitBlock(nn.Module):

@@ -113,12 +113,39 @@ class VitBackbone(nn.Module):
 
 # --- the hybrid's ResNetV2-50 (stem + stages of 3, 4, 9 blocks) ------------
 
+class _StandardizedGrad(torch.autograd.Function):
+    """The standardized weight as computed (and cached) without grad, with
+    the standardization's gradient to the raw weight: per output channel,
+    (g - mean(g) - x_hat * mean(g * x_hat)) / sigma, in f32."""
+
+    @staticmethod
+    def forward(ctx, w, std, eps):
+        ctx.save_for_backward(w)
+        ctx.eps = eps
+        return std.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dims = (1, 2, 3)
+        wf, gf = w.float(), g.float()
+        mean = wf.mean(dims, keepdim=True)
+        inv = torch.rsqrt(wf.var(dims, unbiased=False, keepdim=True)
+                          + ctx.eps)
+        x_hat = (wf - mean) * inv
+        gw = inv * (gf - gf.mean(dims, keepdim=True)
+                    - x_hat * (gf * x_hat).mean(dims, keepdim=True))
+        return gw.to(w.dtype), None, None
+
+
 class StdConv(nn.Conv2d):
     """Weight-standardized conv with TF SAME zero pads (timm
     StdConv2dSame, no bias).  The standardized weight depends only on the
-    parameter: it is computed in f32 on the first forward after the weight
-    changes (a load, an init, a cast or a move) and kept.  Inference
-    only: it carries no gradient."""
+    parameter: it is computed in f32 without grad on the first forward
+    after the weight changes (a load, an init, a cast, a move or an
+    optimizer step) and kept.  With grad enabled and a weight that
+    requires it, the forward carries the standardization's gradient to the
+    weight (``_StandardizedGrad``); the value is the cached one."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  eps: float = 1e-6):
@@ -142,7 +169,10 @@ class StdConv(nn.Conv2d):
 
     def forward(self, x):
         x = same_pad(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.standardized_weight(), None, self.stride)
+        std = self.standardized_weight()
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            std = _StandardizedGrad.apply(self.weight, std, self.eps)
+        return F.conv2d(x, std, None, self.stride)
 
 
 class GroupNormAct(nn.GroupNorm):

@@ -11,6 +11,10 @@ f32 accuracy), whose split K and V^T go to a scratch the wrapper
 allocates.  ``round_to_tf32`` restates the kernel's rounding in plain
 torch, for the checks that tell f32 from one TF32 pass.
 
+A gradient goes through ``FlashAttentionFunction``: K1's forward, and a
+backward in ordinary torch (``attention_grads``).  Without grad, or with
+no input that requires it, the forward runs alone and saves nothing.
+
 The bias layout the kernel reads: rows padded to a multiple of
 ``BIAS_ROW_ALIGN`` elements (a 16-byte-aligned row for TMA, and one that
 SDPA's efficient backend also takes without a copy), heads and batch packed
@@ -193,10 +197,77 @@ def reset_launches() -> None:
         flash_attention_cuda.launches_by_dtype[dt] = 0
 
 
-def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q.k^T * scale + bias) . v on (B, H, N, D) tensors: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+def _forward(q, k, v, bias, scale) -> torch.Tensor:
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, bias, scale)
     return flash_attention_plain(q, k, v, bias, scale)
+
+
+def attention_grads(q, k, v, bias, out, dout, scale: float):
+    """(dq, dk, dv, dbias) of softmax(q.k^T * scale + bias) . v in f32
+    torch, from the forward's output: the scores and P recomputed with
+    ``flash_attention_plain``'s zero-row rule, D = rowsum(dO * O),
+    dS = P * (dO.v^T - D).  dbias is dS, summed over the batch for a bias
+    shared as (1, H, N, Nk); None where ``bias`` is None."""
+    b, h, n, _ = q.shape
+    nb = _normalize_bias(bias, b, h, n, k.shape[2])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if nb is not None:
+        s = s + nb.float()
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m) & (m < 0), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    del s
+    l = p.sum(-1, keepdim=True)
+    p = p * torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    do = dout.float()
+    d = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - d)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    del p
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dbias = None
+    if bias is not None:
+        if nb.shape[0] == 1 and b > 1:
+            ds = ds.sum(0, keepdim=True)
+        dbias = ds.reshape(bias.shape).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 with a gradient.  The forward is ``flash_attention``'s (the
+    kernel for CUDA tensors, the plain version for CPU ones); the backward
+    is ``attention_grads`` in ordinary torch (cuBLAS products on the
+    card), as the JAX package leaves its gradient to XLA's autodiff of the
+    einsum attention: there is no backward Pallas kernel to port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out = _forward(q, k, v, bias, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out = ctx.saved_tensors
+        grads = attention_grads(q, k, v, bias, out, dout, ctx.scale)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q.k^T * scale + bias) . v on (B, H, N, D) tensors: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  With grad
+    enabled and an input that requires grad, through
+    ``FlashAttentionFunction`` (the same forward, inputs and output saved
+    for the backward); otherwise the forward alone, which saves nothing."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return FlashAttentionFunction.apply(q, k, v, bias, float(scale))
+    return _forward(q, k, v, bias, scale)

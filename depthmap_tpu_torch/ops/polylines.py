@@ -8,10 +8,19 @@ host kernel of ``csrc/polylines_host.cpp`` (built by g++ at first use,
 sort-and-sweep of depthmap_tpu/native/polylines.cpp:26 and are byte-exact
 against it and against ``polylines_plain``, the function in plain torch,
 which the tests hold them to.
+
+Rows are independent, so with more than one device the flattened rows
+are padded to a multiple of the device count and split over the devices,
+one sort and sweep per shard on its device, with no collectives: byte-exact
+(the JAX package's ``_rasterize_rows_sharded``).  DEPTHMAP_POLYLINES_SHARD
+unset splits where there is more than one device, 0 never splits, 1 takes
+the split path even on one device; an explicit ``shard=`` overrides it.
 """
 from __future__ import annotations
 
 import ctypes
+import os
+from typing import Optional
 
 import torch
 
@@ -354,21 +363,44 @@ def polylines_host(image: torch.Tensor, nd: torch.Tensor,
 polylines_host.launches = 0
 
 
+def _rasterize_rows(img2: torch.Tensor, nd2: torch.Tensor, *args):
+    if img2.is_cuda:
+        return polylines_cuda(img2, nd2, *args)
+    return polylines_host(img2, nd2, *args)
+
+
+def row_devices(device: torch.device,
+                shard: Optional[bool] = None) -> Optional[list]:
+    """The devices the rows split over, or None for one launch on
+    ``device``: every visible card for a CUDA ``device`` (else the one
+    device) where there are two or more, or where
+    DEPTHMAP_POLYLINES_SHARD=1 or ``shard=True`` forces the split path;
+    never with DEPTHMAP_POLYLINES_SHARD=0 or ``shard=False``."""
+    from depthmap_tpu_torch.parallel import mesh
+    env = os.environ.get("DEPTHMAP_POLYLINES_SHARD")
+    force = shard is True or (shard is None and env == "1")
+    if shard is False or (shard is None and env == "0"):
+        return None
+    devs = mesh.local_devices(device)
+    return devs if len(devs) > 1 or (force and devs) else None
+
+
 def polylines_rasterize(image: torch.Tensor, nd: torch.Tensor,
                         divergence_px: float, separation_px: float,
-                        exponent: float, sharp: bool) -> torch.Tensor:
+                        exponent: float, sharp: bool,
+                        shard: Optional[bool] = None) -> torch.Tensor:
     """image (..., H, W, C) uint8, nd (..., H, W) normalized depth in [0, 1]
     -> (..., H, W, C) uint8.  Leading dims (frames) flatten into rows of
-    one launch.  CUDA tensors launch the kernel, CPU tensors the host
-    kernel."""
+    one launch, or of one launch per device where the rows split
+    (``row_devices``; padded rows rasterize zeros and are dropped).  CUDA
+    tensors launch the kernel, CPU tensors the host kernel."""
+    from depthmap_tpu_torch.parallel.mesh import split_run
     lead = image.shape[:-2]
     w, ch = image.shape[-2:]
     img2 = image.reshape(-1, w, ch).contiguous()
     nd2 = nd.reshape(-1, w).to(torch.float64).contiguous()
-    if image.is_cuda:
-        out = polylines_cuda(img2, nd2, divergence_px, separation_px,
-                             exponent, sharp)
-    else:
-        out = polylines_host(img2, nd2, divergence_px, separation_px,
-                             exponent, sharp)
+    out = split_run(
+        lambda i, z: _rasterize_rows(i, z, divergence_px, separation_px,
+                                     exponent, sharp),
+        row_devices(image.device, shard), img2, nd2, pad=True)
     return out.reshape(*lead, w, ch)

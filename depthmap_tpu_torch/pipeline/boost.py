@@ -9,7 +9,12 @@ intermediate on the predictor's device: the crops (JAX's
 ``scale_and_translate``, restated in ``ops/resize.py``), the two forwards
 of each chunk of patches, both pix2pix merges, the deg-1 polyfit to the
 base and the sequential big-to-small mask blend; only the final (H, W) map
-goes to the host.  A host pipeline (Marigold) runs per crop.
+goes to the host.  A host pipeline (Marigold) runs per crop.  A chunk
+holds ``merge_batch`` patches per device of the predictor's ``devices``,
+and its rects are split over them (the JAX package's ``_shard_rects`` on
+the mesh's data axis): each device crops, estimates, merges and fits its
+share with the predictor's and the merge net's copies there, and the
+fitted patches are gathered before the blend.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from depthmap_tpu_torch.ops.filters import gaussian_kernel1d, sobel
 from depthmap_tpu_torch.ops.resize import (cv2_dilate, cv2_resize_cubic,
                                            cv2_resize_linear, interpolate,
                                            scale_and_translate)
+from depthmap_tpu_torch.parallel.mesh import replica
 
 PIX2PIX_SIZE = 1024
 MASK_SIZE = (3000, 3000)
@@ -356,7 +362,8 @@ class BoostEngine:
 
     @torch.no_grad()
     def merge(self, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
-        return self.merge_net(outer, inner)
+        """The merge net (its copy on the inputs' device)."""
+        return replica(self.merge_net, outer.device)(outer, inner)
 
     def _upsample_to_p(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[-2:]) == (PIX2PIX_SIZE, PIX2PIX_SIZE):
@@ -367,16 +374,16 @@ class BoostEngine:
                         msize: int) -> torch.Tensor:
         """The reference singleestimate: (c, h, w, 3) device RGB in [0, 1]
         (a whole image, or crops already at s = msize) -> (c, P, P)
-        estimates at net size ``msize``, through the model's route: a host
-        pipeline (Marigold) image by image, a ``prep_in_model`` module
-        (ZoeDepth) on the image as it is, any other net on the image
-        resized and normalized by ``boost_cfg``."""
+        estimates at net size ``msize`` on the images' device, through the
+        model's route: a host pipeline (Marigold) image by image, a
+        ``prep_in_model`` module (ZoeDepth) on the image as it is, any
+        other net on the image resized and normalized by ``boost_cfg``."""
         pred = self.predictor
         bundle = pred.bundle
         if bundle.host_pipeline:
             outs = [pred.predict(img, msize, msize)
                     for img in imgs.cpu().numpy()]
-            out = torch.from_numpy(np.stack(outs)).to(self.device)
+            out = torch.from_numpy(np.stack(outs)).to(imgs.device)
         elif bundle.prep_in_model:
             x = imgs.flip(-1) if bundle.preprocess.swap_channels else imgs
             out = pred.forward_net(x.permute(0, 3, 1, 2).contiguous(),
@@ -422,30 +429,43 @@ class BoostEngine:
         updated = to_frame(whole, h, w)
         rects = select_patches(img, rf, whole_size, patch_scale,
                                whole_size_threshold)
+        devices = self.predictor.devices
+        mb = self.merge_batch * len(devices)
         self.last_run = {"whole_size": whole_size, "patches": len(rects),
-                         "chunks": -(-len(rects) // self.merge_batch)}
+                         "chunks": -(-len(rects) // mb)}
         if not rects:
             return updated.cpu().numpy()
 
-        # each chunk of patches: cropped at both net sizes, estimated,
-        # merged twice and fitted to the base in batched device calls; the
-        # ragged tail padded to the full chunk
-        mb = self.merge_batch
+        # each chunk of patches (merge_batch a device): its rects split
+        # over the devices; each share cropped at both net sizes,
+        # estimated, merged twice and fitted to the base in batched calls
+        # on its device; the ragged tail padded to the full chunk
         n_pad = -(-len(rects) // mb) * mb
         rects_arr = np.zeros((n_pad, 4), np.int32)
         rects_arr[:len(rects)] = np.asarray(rects, np.int32)
+        inputs = {d: (img_dev.to(d), updated.to(d)) for d in set(devices)}
         merged = []
         for i in range(0, n_pad, mb):
-            rc = rects_arr[i:i + mb]
-            lows = self.single_estimate(
-                crop_resize_batch(img_dev, rc, rf, rf), rf)
-            highs = self.single_estimate(
-                crop_resize_batch(img_dev, rc, 2 * rf, 2 * rf), 2 * rf)
-            m1 = minmax_norm_batch(self.merge(lows, highs))
-            base = crop_resize_batch(updated, rc, PIX2PIX_SIZE, PIX2PIX_SIZE)
-            merged.append(fit_to_base(self.merge(base, m1), base))
+            shares = [self._patch_chunk(*inputs[d], rc) for d, rc in
+                      zip(devices, np.split(rects_arr[i:i + mb],
+                                            len(devices)))]
+            merged.extend(m.to(self.device) for m in shares)
         if self._mask is None:
             self._mask = generate_mask(MASK_SIZE, self.device)
         updated = blend_patches(updated, torch.cat(merged), rects_arr,
                                 self._mask)
         return updated.cpu().numpy()
+
+    def _patch_chunk(self, img_dev: torch.Tensor, updated: torch.Tensor,
+                     rc: np.ndarray) -> torch.Tensor:
+        """One device's share of a chunk: the rects ``rc`` of the image and
+        of the merge frame (both on that device) -> the fitted (n, P, P)
+        patch estimates there."""
+        rf = self.rf
+        lows = self.single_estimate(crop_resize_batch(img_dev, rc, rf, rf),
+                                    rf)
+        highs = self.single_estimate(
+            crop_resize_batch(img_dev, rc, 2 * rf, 2 * rf), 2 * rf)
+        m1 = minmax_norm_batch(self.merge(lows, highs))
+        base = crop_resize_batch(updated, rc, PIX2PIX_SIZE, PIX2PIX_SIZE)
+        return fit_to_base(self.merge(base, m1), base)

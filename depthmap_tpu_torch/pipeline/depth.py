@@ -22,7 +22,15 @@ DEPTHMAP_ALLOW_DOWNLOAD=1 (``utils/download.py``), else seeded random
 weights.
 
 Device: "cuda" (or a cuda:N) needs CUDA and raises without it; "cpu" runs
-everything on the host, attention through K1's plain version.
+everything on the host, attention through K1's plain version.  Devices: a
+batch whose size the number of ``devices`` divides (more than one) is
+split into that many equal shards, shard i's forward on ``devices[i]``
+(a copy of the module there, ``parallel/mesh.py replica``), the maps
+gathered in order on the predictor's device, as the JAX package's
+``_shard_batch`` puts the frames on the mesh's data axis.  The list
+defaults to every visible card for "cuda" and may repeat a device; a
+Marigold predictor gives it to its pipeline, which splits the ensemble
+members over it.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.models.build import ModelBundle, build_model
 from depthmap_tpu_torch.ops import numerics
 from depthmap_tpu_torch.ops.resize import interpolate
+from depthmap_tpu_torch.parallel.mesh import (canonical, local_devices,
+                                              replica, split_run)
 from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
 from depthmap_tpu_torch.registry import MODELS, resolve_model_type
 
@@ -105,14 +115,20 @@ def _fetch_marigold(weights_dir: str) -> None:
 
 
 class DepthPredictor:
-    """One depth model on one device."""
+    """One depth model on ``device``, its batches split over
+    ``devices``."""
 
     def __init__(self, model_type, state_dict: Optional[Dict] = None,
                  weights_dir: str = "./models", seed: int = 0,
                  compute_dtype=None, tiling_mode: bool = False,
                  device="cuda", bundle: Optional[ModelBundle] = None,
-                 marigold_ensembles: int = 5, marigold_steps: int = 12):
+                 marigold_ensembles: int = 5, marigold_steps: int = 12,
+                 devices=None):
         self.device = resolve_device(device)
+        if devices is None:   # every card for "cuda", else the one device
+            devices = local_devices(self.device) if self.device == \
+                torch.device("cuda") else [self.device]
+        self.devices = [canonical(resolve_device(d)) for d in devices]
         set_fp32_precision(self.device)
         self.model_type = resolve_model_type(model_type)
         self.spec = MODELS[self.model_type]
@@ -156,38 +172,47 @@ class DepthPredictor:
         if self.core_dtype != self.compute_dtype:
             module.core_to(self.core_dtype)
         module.eval()
-        # net input (H, W) -> the module's forward inputs (grid_inputs)
-        self._grid_inputs: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        # (device, net input (H, W)) -> the forward inputs of the module
+        # (or of its copy) there (grid_inputs)
+        self._grid_inputs: Dict[Tuple[torch.device, Tuple[int, int]],
+                                Dict[str, Any]] = {}
 
     # -- inference ---------------------------------------------------------
-    def grid_inputs(self, input_hw: Tuple[int, int]) -> Dict[str, Any]:
-        """The module's keyword inputs for a net input of ``input_hw``
-        (what it computes from its parameters per grid, in the core's
-        dtype; the conv models have none), computed on the first forward
-        at that size and kept."""
-        if input_hw not in self._grid_inputs:
-            self._grid_inputs[input_hw] = self.bundle.module.grid_inputs(
+    def module_on(self, device) -> torch.nn.Module:
+        """The module on ``device``: its own, or its copy there."""
+        return replica(self.bundle.module, device)
+
+    def grid_inputs(self, input_hw: Tuple[int, int],
+                    device=None) -> Dict[str, Any]:
+        """The module's keyword inputs for a net input of ``input_hw`` on
+        ``device`` (default: the predictor's; what it computes from its
+        parameters per grid, in the core's dtype; the conv models have
+        none), computed on the first forward at that size and kept."""
+        key = (canonical(device or self.device), input_hw)
+        if key not in self._grid_inputs:
+            self._grid_inputs[key] = self.module_on(key[0]).grid_inputs(
                 input_hw, self.core_dtype)
-        return self._grid_inputs[input_hw]
+        return self._grid_inputs[key]
 
     @torch.no_grad()
     def forward_net(self, x: torch.Tensor, out_hw=None,
                     net_size: Optional[Tuple[int, int]] = None
                     ) -> torch.Tensor:
-        """The JAX predictor's ``_apply``: x is the NCHW net input on the
-        device (already resized and normalized) -> (N, out_h, out_w) f32,
-        upsampled as the bundle says.  A ``prep_in_model`` module
-        (ZoeDepth) takes the NCHW image in [0, 1] instead, channels in its
-        order, resizes it to fit ``net_size`` (h, w) itself and returns the
-        input's size."""
-        module = self.bundle.module
+        """The JAX predictor's ``_apply``: x is the NCHW net input on one
+        of the devices (already resized and normalized) -> (N, out_h,
+        out_w) f32 there, upsampled as the bundle says, by the module's
+        copy on x's device.  A ``prep_in_model`` module (ZoeDepth) takes
+        the NCHW image in [0, 1] instead, channels in its order, resizes it
+        to fit ``net_size`` (h, w) itself and returns the input's size."""
+        module = self.module_on(x.device)
         x = x.to(self.compute_dtype)
         if self.bundle.prep_in_model:
             h, w = x.shape[2:]
             input_hw = module.net_input_size(h, w, net_size, module.img_size)
-            pred = module(x, net_size=net_size, **self.grid_inputs(input_hw))
+            pred = module(x, net_size=net_size,
+                          **self.grid_inputs(input_hw, x.device))
             return pred.to(torch.float32)
-        pred = module(x, **self.grid_inputs(tuple(x.shape[2:])))
+        pred = module(x, **self.grid_inputs(tuple(x.shape[2:]), x.device))
         return interpolate(pred[:, None].to(torch.float32), out_hw,
                            self.bundle.upsample_mode,
                            self.bundle.upsample_align_corners)[:, 0]
@@ -215,19 +240,22 @@ class DepthPredictor:
         depth = self.bundle.module(
             img01, processing_res=net_w,
             ensemble_size=self.marigold_ensembles,
-            denoising_steps=self.marigold_steps, match_input_res=False)
+            denoising_steps=self.marigold_steps, match_input_res=False,
+            devices=self.devices)
         return cv2_resize_cubic(depth, (img01.shape[1], img01.shape[0]))
 
     def _raw_batch(self, imgs01, net_w: int, net_h: int,
                    resize_mode: Optional[str] = None) -> torch.Tensor:
-        """(N, H, W) raw maps on the device; a host pipeline one image at
-        a time."""
+        """(N, H, W) raw maps on the device, the stack split over the
+        devices where their number divides it; a host pipeline one image
+        at a time."""
         if self.bundle.host_pipeline:
             return torch.from_numpy(np.stack([
                 self._pipeline_raw(f, net_w) for f in np.asarray(imgs01)
             ])).to(self.device)
-        return self._forward(self._to_device(imgs01), net_w, net_h,
-                             resize_mode)
+        return split_run(lambda x: self._forward(x, net_w, net_h,
+                                                 resize_mode),
+                         self.devices, self._to_device(imgs01))
 
     def _to_device(self, imgs01) -> torch.Tensor:
         return torch.as_tensor(np.asarray(imgs01, np.float32)).to(

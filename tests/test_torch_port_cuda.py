@@ -811,3 +811,156 @@ def test_raster_card_equals_cpu(inpaint_ckpt):
                       .render_device(np.asarray(cam)).cpu().numpy()
                       for dev in ("cuda", "cpu")}
             np.testing.assert_array_equal(frames["cuda"], frames["cpu"])
+
+
+# -- K1's gradient and the splits over a repeated card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", ["shared", "batched", None])
+def test_flash_attention_gradient_matches_plain(bias_kind):
+    """With inputs that require grad, K1's output carries a graph
+    (FlashAttentionFunction: K1's forward, the backward in torch) whose
+    dq, dk, dv and dbias match autograd through the plain version in f64
+    within K1_GRAD_BOUND, f32 body: the plain version's function
+    (softmax(q.k^T / 8 + bias).v) by autograd in f64; a padded-row bias's
+    gradient reaches the dense tensor it was copied from."""
+    _needs_card()
+    g = torch.Generator(device="cpu").manual_seed(3)
+    b, h, n = 2, 4, 257
+
+    def mk(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+    q, k, v = mk(b, h, n, 64, s=4.0), mk(b, h, n, 64), mk(b, h, n, 64,
+                                                           s=0.25)
+    dense = None if bias_kind is None else mk(
+        1 if bias_kind == "shared" else b, h, n, n)
+    dout = mk(b, h, n, 64)
+    ins = [t.requires_grad_() for t in (q, k, v)] + (
+        [dense.requires_grad_()] if dense is not None else [])
+    before = fa.flash_attention_cuda.launches
+    out = fa.flash_attention(q, k, v, None if dense is None
+                             else fa.pad_bias_rows(dense))
+    assert fa.flash_attention_cuda.launches == before + 1
+    assert out.requires_grad and out.grad_fn is not None
+    got = torch.autograd.grad((out * dout).sum(), ins)
+    ref = [t.detach().double().requires_grad_() for t in ins]
+    s = ref[0] @ ref[1].transpose(-1, -2) * 64 ** -0.5
+    if dense is not None:
+        s = s + ref[3]
+    want = torch.autograd.grad(
+        ((torch.softmax(s, -1) @ ref[2]) * dout.double()).sum(), ref)
+    for name, a, w in zip("qkvb", got, want):
+        err = (a.double() - w).abs().max().item()
+        assert err <= K1_GRAD_BOUND * w.abs().max().item(), (name, err)
+
+
+# dq, dk, dv, dbias from K1's f32 body against the function's in f64:
+# the forward errs ~1e-6 of its outputs (split TF32) and the backward is
+# f32 torch; 1e-4 of each gradient's largest magnitude holds both with
+# room, and a detached output (no gradient at all) fails it
+K1_GRAD_BOUND = 1e-4
+
+
+@pytest.mark.cuda
+def test_polylines_row_split_over_a_repeated_card(monkeypatch):
+    """K2's rows padded and split over two visible cards, the one card
+    twice ([cuda:0, cuda:0]): one sort and one sweep per shard,
+    byte-equal to one launch."""
+    _needs_card()
+    from depthmap_tpu_torch.parallel import mesh
+    g = torch.Generator(device="cpu").manual_seed(4)
+    img = torch.randint(0, 256, (67, 480, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    nd = torch.rand((67, 480), generator=g).cuda()
+    one = P.polylines_rasterize(img, nd, 24.0, 0.0, 1.0, True, shard=False)
+    monkeypatch.setattr(mesh, "local_devices",
+                        lambda device="cuda": [torch.device("cuda", 0)] * 2)
+    sorts, sweeps = P._sort_cuda.launches, P._sweep_cuda.launches
+    split = P.polylines_rasterize(img, nd, 24.0, 0.0, 1.0, True)
+    torch.cuda.synchronize()
+    assert (P._sort_cuda.launches - sorts, P._sweep_cuda.launches - sweeps) \
+        == (2, 2)
+    assert torch.equal(split, one)
+
+
+@pytest.mark.cuda
+def test_splits_over_the_card_and_the_cpu_copy_the_modules(monkeypatch):
+    """A device list of [cuda:0, cpu] makes real copies of the modules on
+    the CPU (one card repeated shares its module): predict_batch of a
+    small Depth Anything v2 (f32), Boost on it (a 6-level merge net at
+    PIX2PIX_SIZE 64, receptive field 64) and a small Marigold's members
+    each hold to the unsplit run on the card within 1e-3 of its range
+    (K1 on the card's shard, its plain version on the CPU's: the card
+    against CPU bound of the tests above); the card's shard launches K1,
+    the CPU's none; a copy follows a load of new weights."""
+    _needs_card()
+    import dataclasses
+    from depthmap_tpu_torch.models import pix2pix
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.depth_anything import DepthAnything
+    from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
+    from depthmap_tpu_torch.models.marigold.pipeline import build_marigold
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.parallel.mesh import replica
+    from depthmap_tpu_torch.pipeline import boost as B
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mixed = [cuda, cpu]
+
+    def close(got, want):
+        span = float(np.ptp(want))
+        assert span > 0 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * span)
+
+    small = DepthAnything(DinoV2Backbone(embed_dim=128, depth=4, num_heads=2,
+                                         hooks=(0, 1, 2, 3),
+                                         train_img_size=56),
+                          features=32, out_channels=(16, 32, 64, 64))
+    sd = init_random_(small, seed=7).state_dict()
+    with torch.device("meta"):
+        bundle = build_model(13)
+    preds = {}
+    for name, devices in (("split", mixed), ("one", [cuda])):
+        preds[name] = DepthPredictor(
+            13, state_dict=sd, compute_dtype=torch.float32, device="cuda",
+            devices=devices, bundle=dataclasses.replace(bundle,
+                                                        module=small))
+    frames = np.random.default_rng(8).random((2, 45, 77, 3)).astype(
+        np.float32)
+    before = fa.flash_attention_cuda.launches
+    got = preds["split"].predict_batch(frames, 70, 70)
+    assert fa.flash_attention_cuda.launches - before == 4   # one frame
+    copy = preds["split"].module_on(cpu)
+    assert copy is not small and next(copy.parameters()).device == cpu
+    close(got, preds["one"].predict_batch(frames, 70, 70))
+
+    monkeypatch.setattr(B, "PIX2PIX_SIZE", 64)
+    merge = init_random_(pix2pix.Pix2Pix4Depth(num_downs=6, ngf=8), 9)
+    img = np.random.default_rng(9).random((96, 128, 3)).astype(np.float32)
+    maps = {}
+    for name, pred in preds.items():
+        engine = B.BoostEngine(pred, merge_net=merge, merge_batch=2)
+        engine.rf = 64
+        maps[name] = engine.estimate(img, whole_size_threshold=256)
+        maps[name + "_run"] = dict(engine.last_run)
+    assert maps["split_run"]["patches"] > 0
+    assert replica(merge, cpu) is not merge
+    close(maps["split"], maps["one"])
+
+    pipe = build_marigold(base=64, vae_base=32, context_dim=64)
+    init_random_(pipe, seed=2)
+    pipe = pipe.cuda().eval()
+    rgb = np.random.default_rng(4).random((48, 64, 3)).astype(np.float32)
+    noise = torch.randn((2, 4, 6, 8),
+                        generator=torch.Generator().manual_seed(5))
+    run = dict(rgb01=rgb, processing_res=64, ensemble_size=2,
+               denoising_steps=2, noise=noise)
+    before = fa.flash_attention_cuda.launches
+    members = pipe.members(devices=mixed, **run)
+    assert fa.flash_attention_cuda.launches - before == 64  # one member
+    close(members, pipe.members(**run))
+    first = replica(pipe, cpu)
+    pipe.load_state_dict(init_random_(build_marigold(
+        base=64, vae_base=32, context_dim=64), seed=3).state_dict())
+    assert replica(pipe, cpu) is not first
+    close(pipe.members(devices=mixed, **run), pipe.members(**run))

@@ -291,16 +291,17 @@ def test_pos_embed_computed_once_per_grid(rng):
     first = tp.predict_batch(x, 70, 70)
     cached = dict(tp._grid_inputs)
     hw = (70, 126)
-    assert list(cached) == [hw] and list(cached[hw]) == ["pos_embed"]
-    assert cached[hw]["pos_embed"].shape[1] == 5 * 9 + 1
+    key = (torch.device("cpu"), hw)
+    assert list(cached) == [key] and list(cached[key]) == ["pos_embed"]
+    assert cached[key]["pos_embed"].shape[1] == 5 * 9 + 1
     again = tp.predict_batch(x, 70, 70)
-    assert tp.grid_inputs(hw)["pos_embed"] is cached[hw]["pos_embed"]
+    assert tp.grid_inputs(hw)["pos_embed"] is cached[key]["pos_embed"]
     np.testing.assert_array_equal(first, again)
     from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
     xin = preprocess_images(torch.from_numpy(x), 70, 70, tp.bundle.preprocess)
     with torch.no_grad():
         inline = tp.bundle.module(xin)
-        hoisted = tp.bundle.module(xin, **cached[hw])
+        hoisted = tp.bundle.module(xin, **cached[key])
     torch.testing.assert_close(hoisted, inline, rtol=0, atol=0)
 
 

@@ -245,7 +245,8 @@ def test_cli_depthmap_stereo(rng, tmp_path):
 def test_port_imports_no_jax():
     """Every module of the package (walked, so the model modules that
     build_model loads lazily count too, and the frontends, rembg's
-    integration, utils/ and the host kernel's build) and chip_smoke.py (imported as a
+    integration, utils/, the host kernel's build, parallel/ and the graft
+    entry) and chip_smoke.py (imported as a
     module, its main not run) import no JAX and nothing of the JAX
     package."""
     code = (
@@ -259,7 +260,8 @@ def test_port_imports_no_jax():
         "for new in ('frontends.api', 'frontends.gradio_ui', "
         "'frontends.webui_script', 'pipeline.rembg_integration', "
         "'utils.download', 'utils.metrics', 'utils.profiling', "
-        "'ops.host_build', '__main__'):\n"
+        "'ops.host_build', '__main__', 'parallel.mesh', 'parallel.train', "
+        "'graft_entry'):\n"
         "    assert 'depthmap_tpu_torch.' + new in names, new\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"

@@ -410,7 +410,7 @@ def test_predictor_matches_jax(kind, rng):
     got = tp.predict_batch(imgs, 64, 64)
     assert got.shape == want.shape == (2, 48, 80)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
-    assert list(tp._grid_inputs) == [(64, 96)]
+    assert list(tp._grid_inputs) == [(torch.device("cpu"), (64, 96))]
     np.testing.assert_allclose(tp.predict(imgs[1], 64, 64), got[1],
                                atol=1e-5, rtol=1e-5)
 
@@ -433,7 +433,7 @@ def test_selective_precision_core_bf16_head_f32(monkeypatch, rng):
     imgs = rng.random((1, 48, 80, 3)).astype(np.float32)
     got = sel.predict_batch(imgs, 64, 64)
     assert all(b.dtype == torch.bfloat16
-               for b in sel._grid_inputs[(64, 96)]["rel_bias"])
+               for b in sel.grid_inputs((64, 96))["rel_bias"])
     _, f32 = _predictors("k", seed=19, compute_dtype="float32")
     ref = f32.predict_batch(imgs, 64, 64)
     rel = np.abs(got - ref) / np.abs(ref)
