@@ -41,7 +41,16 @@ and prints no result):
      it (f32: also the split-TF32 bound), and the error of three planted
      faults (a kv tile skipped, the output scaled), each of which must
      exceed the bound; f32 cases must also hold K1_F32_ACCURACY, which one
-     TF32 pass (a fourth fault) must break; then ("2a") the bf16 body's
+     TF32 pass (a fourth fault) must break; K1's table mode (BEiT's
+     streamed tier: the bias read from the (H, T) rel-pos table inside the
+     kernel) at Boost's, net 1600's and net 2048's shapes in bf16 (N =
+     3073 to 16385) and net 768 and 1024 in f32, each byte-equal to K1
+     with the bias materialized from the same table and within the K1
+     bound of the plain streamed version, which two planted faults (gh
+     and gw swapped on a grid that is not square, the cls entries
+     swapped) must break; with the materialized call's time, the
+     gather's, SDPA's (efficient, cuDNN) with the materialized bias and
+     the operations bound; then ("2a") the bf16 body's
      rescale at N = 10765 (K1_ALPHA_*): its signed mean error against f64
      over all rows within K1_ALPHA_SIGMAS standard errors of 0, the old
      alpha form's (restated) outside, beside the plain version's;
@@ -105,7 +114,9 @@ and prints no result):
      textured 4:3 image whose whole-image pass runs at R_x 1536 (N =
      6913): R_x, the
      patches, s per image, peak memory, and K1 24 times a forward (two
-     whole-image forwards and two a chunk of 4 patches); then the device
+     whole-image forwards and two a chunk of 4 patches), by mode: BEiT's
+     forwards over the stream budget (the whole image at 1536, the
+     patches at 1024^2) in table mode, no bias gathered; then the device
      chain (crop-resize, fit, blend) at 1080p with P = 1024 and the
      full-width pix2pix (1024^2, batch 1, f32), card against CPU;
  14. Marigold (type 10) through the funnel: a 4:3 image at res 768
@@ -170,18 +181,27 @@ and prints no result):
      steps, f32 (byte-equal to its shards, within SPLIT_MARIGOLD_ATOL of
      the whole), K2's rows on phase 3's 1080p eye (byte-equal, 2 sorts
      and 2 sweeps); (d) dryrun_multichip(2) on the CPU (gloo).  Every K1
-     shape of 18b-18d must be a phase-2 case.  One card: cross-card NCCL
-     is not measured.
-Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17, 18) sets every kernel
-count to 0 just before each timed run and reads it just after.  With
+     shape of 18b-18d (table mode's with its grid) must be a phase-2
+     case.  One card: cross-card NCCL is not measured;
+ 19. streamed bias: dpt_beit_large_512 (bf16) through the predictor at
+     net 1024^2, 1600^2 and 2048^2, in the streamed tier and in the
+     inline one (DEPTHMAP_BIAS_STREAM_BYTES raised): the maps byte-equal,
+     each forward's ms, peak memory and K1 launches by mode (24 table-mode
+     launches streamed, 24 with a materialized bias inline); at 2048^2
+     the streamed peak under one block's 8.6 GB bias, the inline one
+     over it.
+Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 19) sets
+every kernel count to 0 just before each timed run and reads it just
+after.  With
 --profile, torch.profiler over one warm funnel run per path (video mode:
 one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
 path's device time and K1's / K2's share of it (K2: both stages).  The
 last lines: the card's name and power limit, a JSON line with each
 kernel's numbers (K1's launches: the sum over the model paths, each
-path's count beside it, the f32 body's on the Marigold paths, and the f32
-body's main case, Marigold's (5, 5, 6912), with SDPA efficient's time and
-both bounds, and the rescale check's signed mean; K2's: the sweeps of
+path's count beside it, the f32 body's on the Marigold paths, the table
+mode's on the paths that stream (launches_rel_by_path) and its main case
+(Boost's (1, 16, 6913), table_mode), and the f32 body's main case,
+Marigold's (5, 5, 6912), with SDPA efficient's time and both bounds, and the rescale check's signed mean; K2's: the sweeps of
 phases 4, 15's pass 2 and 17, each beside it), and {"ok": true,
 "device": {...}}.
 """
@@ -210,6 +230,12 @@ K1_BOUND = {"float32": 5e-3, "bfloat16": 2e-2}
 K1_F32_ACCURACY = 5e-5
 # the f32 body's main case: Marigold's largest self-attention
 K1_F32_MAIN = "f32_b5_h5_n6912_self"
+# table mode's main case: Boost's whole image at R_x 1536 (phase 13)
+K1_REL_MAIN = "bf16_b1_h16_n6913_rel72x96"
+# table mode's tables ~ this x N(0, 1): a spread of a few units, so that a
+# wrong index (a swapped grid, swapped cls entries) moves the logits as
+# much as q.k does
+K1_REL_TABLE_STD = 3.0
 # K1's f32 kernel in SASS: at most this many FFMA, 5 for each of the 32
 # scores a thread holds per tile.  The softmax needs two a score (the
 # scale or bias, the move to log2 space), O = O.alpha + tile one an output
@@ -244,6 +270,8 @@ K1_ALPHA_N = 10765
 K1_ALPHA_KEY = 90.0
 K1_ALPHA_SIGMAS = 6.0
 K1_SOURCE = "depthmap_tpu_torch/csrc/flash_attention.cu"
+# a fragment of the names of K1's two bodies (flash_fwd_bf16 / _f32)
+K1_KERNEL = "flash_fwd"
 K1_REPLACES = "depthmap_tpu/ops/flash_attention.py:250"
 K2_SOURCE = "depthmap_tpu_torch/csrc/polylines.cu"
 K2_REPLACES = "depthmap_tpu/ops/polylines_pallas.py:389"
@@ -309,29 +337,48 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """The device time of one call of ``fn``: its kernels' times summed by
-    torch.profiler over ``iters`` calls (after a warm one), per call.  A
-    short kernel's CUDA-event time (``cuda_ms``) holds the host's launch
-    gaps too when the host takes longer per call than the card."""
+def _annotation(event) -> bool:
+    """Whether a profiler event is a user annotation's range (a
+    ``record_function`` span, e.g. utils/profiling.py ``stage``), which
+    the profiler also lists on the device, over every kernel inside it:
+    not a kernel's time (torch's own device-time sum skips them too)."""
+    return bool(getattr(event, "is_user_annotation", False))
+
+
+# spin cycles that hold the stream while the host queues the calls
+# device_ms times (~10 ms on an H100's clock), doubled while too short
+HOLD_CYCLES = 20_000_000
+
+
+def device_ms(fn, iters: int, tries: int = 4) -> float:
+    """The device time of one call of ``fn``: CUDA events around ``iters``
+    calls (after a warm one) queued behind a spin kernel that holds the
+    stream until the host has queued them all, so no launch gap of the
+    host enters; per call.  The hold must outlast the queueing (the end
+    event still pending once it is queued), else it is doubled, ``tries``
+    times in all.  ``cuda_ms`` times the same calls as a caller sees them,
+    host gaps included.  (torch.profiler, which sums kernel times, lost
+    one launch in five after the first dozen cases of phase 2 on the H100,
+    so it times nothing here.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    hold = HOLD_CYCLES
+    for _ in range(tries):
+        torch.cuda._sleep(hold)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        held = not end.query()
         torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if t is None else t
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / iters
+        if held:
+            return start.elapsed_time(end) / iters
+        hold *= 2
+    raise AssertionError(f"device_ms: the host took longer to queue {iters} "
+                         f"calls than a {hold // 2}-cycle spin")
 
 
 def phase_environment():
@@ -387,26 +434,31 @@ def phase_build():
     counts = k1_sass_counts(sass)
     for kernel, c in counts.items():
         log("1-sass", lib="flash_attention", kernel=kernel, **c)
-    bf16, f32 = counts.get("flash_fwd_bf16"), counts.get("flash_fwd_f32")
-    if not bf16 or bf16["HGMMA"] == 0:
-        raise AssertionError("no HGMMA instruction in K1's bf16 kernel: "
-                             "it does not run on the tensor cores")
-    if not f32 or f32["HGMMA_TF32"] == 0:
-        raise AssertionError("no TF32 HGMMA instruction in K1's f32 "
-                             "kernel: it does not run on the tensor cores")
-    if f32["FFMA"] > K1_F32_MAX_FFMA:
-        raise AssertionError(f"K1's f32 kernel holds {f32['FFMA']} FFMA "
-                             f"(> {K1_F32_MAX_FFMA}): a product on the "
-                             "CUDA cores")
+    for mode in ("", "_rel"):   # each body's two instances
+        bf16 = counts.get("flash_fwd_bf16" + mode)
+        f32 = counts.get("flash_fwd_f32" + mode)
+        if not bf16 or bf16["HGMMA"] == 0:
+            raise AssertionError(f"no HGMMA instruction in K1's bf16{mode} "
+                                 "kernel: it does not run on the tensor "
+                                 "cores")
+        if not f32 or f32["HGMMA_TF32"] == 0:
+            raise AssertionError(f"no TF32 HGMMA instruction in K1's "
+                                 f"f32{mode} kernel: it does not run on "
+                                 "the tensor cores")
+        if f32["FFMA"] > K1_F32_MAX_FFMA:
+            raise AssertionError(f"K1's f32{mode} kernel holds "
+                                 f"{f32['FFMA']} FFMA (> {K1_F32_MAX_FFMA}):"
+                                 " a product on the CUDA cores")
 
 
 def short_name(mangled):
     """The kernel's name inside a mangled symbol (the csrc kernels live in
-    an anonymous namespace)."""
+    an anonymous namespace); K1's table-mode instances (template argument
+    true, "ILb1E") end in "_rel"."""
     for name in ("flash_fwd_bf16", "flash_fwd_f32", "split_kv_f32",
                  "polylines_sort", "polylines_sweep"):
         if mangled and name in mangled:
-            return name
+            return name + "_rel" if name + "ILb1E" in mangled else name
     return mangled
 
 
@@ -501,6 +553,26 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
     # that is not a case here (``k1_shapes``).
     ("f32_b2_h16_n1025_shared", "float32", 2, 16, 1025, 1),
     ("bf16_b1_h16_n3073_shared", "bfloat16", 1, 16, 3073, 1),
+    # K1's table mode (the bias field ("rel", gh, gw)): BEiT-L 512's
+    # streamed tier, one block's bias over DEPTHMAP_BIAS_STREAM_BYTES
+    # (bf16 from N = 2897, f32 from 2049): Boost's whole image at R_x
+    # 1024 on a 4:3 input (phase 18c), its patches at 1024^2, its whole
+    # image at R_x 1536 on a 4:3 input (phase 13) and on a square one, the
+    # whole image at r_max 1600, net 2048 (phase 19, with 1024 and 1600);
+    # net 768 and 1024 in f32.  A table-mode row also holds K1 with the
+    # materialized bias at its shape (bias batch 1), byte-equal to it:
+    # the inline tier of phase 19
+    ("bf16_b1_h16_n3073_rel48x64", "bfloat16", 1, 16, 3073, ("rel", 48, 64)),
+    ("bf16_b4_h16_n4097_rel64x64", "bfloat16", 4, 16, 4097, ("rel", 64, 64)),
+    ("bf16_b1_h16_n4097_rel64x64", "bfloat16", 1, 16, 4097, ("rel", 64, 64)),
+    ("bf16_b1_h16_n6913_rel72x96", "bfloat16", 1, 16, 6913, ("rel", 72, 96)),
+    ("bf16_b1_h16_n9217_rel96x96", "bfloat16", 1, 16, 9217, ("rel", 96, 96)),
+    ("bf16_b1_h16_n10001_rel100x100", "bfloat16", 1, 16, 10001,
+     ("rel", 100, 100)),
+    ("bf16_b1_h16_n16385_rel128x128", "bfloat16", 1, 16, 16385,
+     ("rel", 128, 128)),
+    ("f32_b1_h16_n2305_rel48x48", "float32", 1, 16, 2305, ("rel", 48, 48)),
+    ("f32_b1_h16_n4097_rel64x64", "float32", 1, 16, 4097, ("rel", 64, 64)),
     *[(f"f32_b{b}_h{h}_n{n}_{kind}", "float32", b, h, n, None,
        *((77,) if kind == "cross77" else ()))
       for b in (2, 4) for kind in ("self", "cross77")
@@ -509,48 +581,69 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
 
 
 def k1_case_key(dtype: str, b, h, n, nk, bias_batch) -> tuple:
-    """A K1 call's shape: (dtype, B, H, N, Nk, bias batch or None)."""
+    """A K1 call's shape: (dtype, B, H, N, Nk, bias batch, None or, in
+    table mode, ("rel", gh, gw))."""
     return (dtype, b, h, n, nk, bias_batch)
 
 
 class k1_shapes:
     """Inside: ``seen`` gathers the shape (``k1_case_key``) of every K1
-    launch, for the check that phase 2 held each against the plain
-    version.  Records, launches nothing."""
+    launch, table mode's with its grid, for the check that phase 2 held
+    each against the plain version.  Records, launches nothing."""
 
     def __enter__(self):
         from depthmap_tpu_torch.ops import flash_attention as fa
-        self.orig, self.seen = fa._forward, set()
+        self.orig, self.seen = fa._launch, set()
 
-        def record(q, k, v, bias, scale):
-            if q.is_cuda:
-                self.seen.add(k1_case_key(
-                    str(q.dtype)[6:], *q.shape[:3], k.shape[2],
-                    None if bias is None else bias.shape[0]))
-            return self.orig(q, k, v, bias, scale)
-        fa._forward = record
+        def record(q, k, v, bias, table, grid, scale):
+            mode = ("rel", *grid) if table is not None else \
+                None if bias is None else bias.shape[0]
+            self.seen.add(k1_case_key(str(q.dtype)[6:], *q.shape[:3],
+                                      k.shape[2], mode))
+            return self.orig(q, k, v, bias, table, grid, scale)
+        fa._launch = record
         return self
 
     def __exit__(self, *exc):
         from depthmap_tpu_torch.ops import flash_attention as fa
-        fa._forward = self.orig
+        fa._launch = self.orig
 
 
 def k1_shapes_not_held(seen) -> list:
-    """The shapes in ``seen`` that no K1_CASES row holds."""
-    held = {k1_case_key(dt, b, h, n, rest[0] if rest else n, bb)
-            for _, dt, b, h, n, bb, *rest in K1_CASES}
+    """The shapes in ``seen`` that no K1_CASES row holds (a table-mode row
+    holds its shape in table mode and with the materialized bias, which
+    k1_rel_case requires byte-equal)."""
+    held = set()
+    for _, dt, b, h, n, bb, *rest in K1_CASES:
+        held.add(k1_case_key(dt, b, h, n, rest[0] if rest else n, bb))
+        if isinstance(bb, tuple):
+            held.add(k1_case_key(dt, b, h, n, n, 1))
     return sorted(seen - held, key=str)
 
 
+def check_k1_shapes(phase: str, seen) -> None:
+    """Log the K1 shapes a phase ran and fail on one that phase 2 does not
+    hold against the plain version."""
+    missing = k1_shapes_not_held(seen)
+    log(f"{phase}-k1-shapes", seen=len(seen), not_in_phase_2=missing)
+    if missing:
+        raise AssertionError(f"{phase}: K1 ran at shapes phase 2 does not "
+                             f"hold against the plain version: {missing}")
+
+
 def k1_bound(b, h, n, nk, bias_batch, dtype):
-    """K1's bound: q, k, v, out and the bias's N x Nk entries moved once;
-    4.B.H.N.Nk.D flops at the dtype's peak.  For f32 also the split-TF32
-    bound (three TF32 passes a product, the work the f32 body does on the
-    tensor cores): ((ms, basis) of the dtype, that or None)."""
+    """K1's bound: q, k, v, out and the bias's N x Nk entries moved once
+    (table mode: the (H, T) table, no bias); 4.B.H.N.Nk.D flops at the
+    dtype's peak.  For f32 also the split-TF32 bound (three TF32 passes a
+    product, the work the f32 body does on the tensor cores): ((ms, basis)
+    of the dtype, that or None)."""
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (b * h * (2 * n + 2 * nk) * 64
-                     + (bias_batch or 0) * h * n * nk)
+    if isinstance(bias_batch, tuple):
+        _, gh, gw = bias_batch
+        bias_items = h * ((2 * gh - 1) * (2 * gw - 1) + 3)
+    else:
+        bias_items = (bias_batch or 0) * h * n * nk
+    nbytes = item * (b * h * (2 * n + 2 * nk) * 64 + bias_items)
     flops = 4.0 * b * h * n * nk * 64
     split = bound(nbytes, 3 * flops, "tf32") if dtype == "float32" else None
     return bound(nbytes, flops, dtype), split
@@ -688,8 +781,7 @@ def phase_k1_alpha():
 
 def sdpa_times(q, k, v, bias):
     """SDPA on the same tensors, the port's yardsticks (it never calls
-    them): {backend: (ms, device ms or None where the profiler saw none of
-    its kernels) or "refused"}.  The efficient backend takes the
+    them): {backend: (ms, device ms) or "refused"}.  The efficient backend takes the
     padded-row mask and f32; the flash backend takes no mask and no f32;
     cuDNN's takes what its build accepts."""
     import warnings
@@ -710,12 +802,113 @@ def sdpa_times(q, k, v, bias):
         except RuntimeError:
             out[lib] = "refused"
             continue
-        try:
-            dev = device_ms(sdpa_call, 5)
-        except AssertionError:   # the profiler saw none of its kernels
-            dev = None
-        out[lib] = (cuda_ms(sdpa_call, 10), dev)
+        out[lib] = (cuda_ms(sdpa_call, 10), device_ms(sdpa_call, 5))
     return out
+
+
+def k1_rel_case(name, dts, b, h, grid, g):
+    """One table-mode row of phase 2: the kernel byte-equal to K1 with the
+    bias materialized from the same table (``rel_pos_bias``, the inline
+    tier's gather), and within the K1 bound of the plain streamed version
+    (``attention_rel_streamed``) on the card, which the answers of two
+    planted faults (gh and gw swapped, on a grid that is not square; the
+    two cls entries swapped), made by the plain version, must break; the
+    times of the kernel, the materialized-bias call, the plain version,
+    SDPA's backends with the materialized bias, and the gather of that
+    bias.  q ~ 4 N(0, 1), v ~ N(0, 1) / 4 as for every K1 case, the
+    (T, H) table ~ K1_REL_TABLE_STD N(0, 1)."""
+    import torch
+    from depthmap_tpu_torch.models.attention import (RelBiasSpec,
+                                                     attention_rel_streamed)
+    from depthmap_tpu_torch.models.beit import rel_pos_bias
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    dt = getattr(torch, dts)
+    gh, gw = grid
+    n = gh * gw + 1
+    t_len = (2 * gh - 1) * (2 * gw - 1) + 3
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", dt)
+    q = mk(b, h, n, 64, scale=K1_Q_SCALE)
+    k, v = mk(b, h, n, 64), mk(b, h, n, 64, scale=K1_V_SCALE)
+    table = mk(t_len, h, scale=K1_REL_TABLE_STD)
+    table_ht = table.t().contiguous()
+
+    def rel_call():
+        return fa.flash_attention_rel(q, k, v, table_ht, grid)
+    got = rel_call()
+    torch.cuda.synchronize()
+    bias = rel_pos_bias(table, grid, grid)
+    materialized = fa.flash_attention_cuda(q, k, v, bias)
+    equal = bool(torch.equal(got, materialized))
+    del materialized
+
+    def plain(tab=table, spec_grid=grid):
+        return attention_rel_streamed(q, k, v, RelBiasSpec(tab, *spec_grid))
+    want = plain()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = K1_BOUND[dts]
+    acc = K1_F32_ACCURACY if dts == "float32" else tol
+    num_rel = t_len - 3
+    cls_swapped = table.clone()
+    cls_swapped[[num_rel, num_rel + 1]] = table[[num_rel + 1, num_rel]]
+    faults = {"cls_swapped": lambda: plain(cls_swapped)}
+    if gh != gw:
+        faults["grid_swapped"] = lambda: plain(spec_grid=(gw, gh))
+    faults = {f: (fn().float() - want.float()).abs().max().item()
+              for f, fn in faults.items()}
+    del want
+    ms = cuda_ms(rel_call, 10)
+    dev_ms = device_ms(rel_call, 5)
+    mat_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 10)
+    mat_dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 5)
+    plain_ms = cuda_ms(plain, 1)
+    gather_ms = cuda_ms(lambda: rel_pos_bias(table, grid, grid), 3)
+    library = sdpa_times(q, k, v, bias)
+    (bound_ms, basis), split = k1_bound(b, h, n, n, ("rel", gh, gw), dts)
+    (mat_bound_ms, mat_basis), _ = k1_bound(b, h, n, n, 1, dts)
+    lib_kw = {}
+    for lib in ("efficient", "cudnn"):
+        t = library[lib]
+        if t == "refused":
+            lib_kw[f"sdpa_{lib}_materialized"] = t
+        else:
+            lib_kw[f"sdpa_{lib}_materialized_ms"] = f"{t[0]:.4f}"
+            lib_kw[f"sdpa_{lib}_materialized_device_ms"] = \
+                f"{t[1]:.4f}"
+    split_kw = {} if split is None else dict(
+        split_tf32_bound_us=f"{split[0] * 1e3:.1f}",
+        device_share_of_split_tf32_bound=f"{split[0] / dev_ms:.3f}")
+    log("2-k1-rel", case=name, grid=f"{gh}x{gw}",
+        equal_to_materialized=equal, max_abs_err=f"{err:.3e}", tol=tol,
+        **({"f32_accuracy": acc} if dts == "float32" else {}),
+        ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+        materialized_ms=f"{mat_ms:.4f}",
+        materialized_device_ms=f"{mat_dev_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", gather_ms=f"{gather_ms:.4f}", **lib_kw,
+        bound_us=f"{bound_ms * 1e3:.1f}", bound_by=basis,
+        device_share_of_bound=f"{bound_ms / dev_ms:.3f}",
+        materialized_bound_us=f"{mat_bound_ms * 1e3:.1f}",
+        materialized_bound_by=mat_basis, **split_kw,
+        **{f"fault_{f}_err": f"{e:.3e}" for f, e in faults.items()})
+    if not equal:
+        raise AssertionError(f"K1 {name}: table mode differs from K1 with "
+                             "the materialized bias")
+    if not err <= min(tol, acc):
+        raise AssertionError(f"K1 {name}: max abs err {err} > "
+                             f"{min(tol, acc)}")
+    if not min(faults.values()) > tol:
+        raise AssertionError(f"K1 {name}: a faulty kernel would pass the "
+                             f"bound {tol}: {faults}")
+    eff = library["efficient"]
+    row = dict(case=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               library_ms=None if eff == "refused" else eff[0],
+               materialized_ms=mat_ms, materialized_device_ms=mat_dev_ms,
+               gather_ms=gather_ms, bound_ms=bound_ms, bound_by=basis,
+               max_abs_err=err)
+    del q, k, v, table, table_ht, bias, got
+    torch.cuda.empty_cache()
+    return err, row
 
 
 def phase_k1():
@@ -723,8 +916,14 @@ def phase_k1():
     from depthmap_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(1)
     worst = 0.0
-    main = f32_main = None
+    main = f32_main = rel_main = None
     for name, dts, b, h, n, bb, *rest in K1_CASES:
+        if isinstance(bb, tuple):
+            err, row = k1_rel_case(name, dts, b, h, bb[1:], g)
+            worst = max(worst, err)
+            if name == K1_REL_MAIN:
+                rel_main = row
+            continue
         nk = rest[0] if rest else n
         dt = getattr(torch, dts)
 
@@ -757,7 +956,7 @@ def phase_k1():
             else:
                 lib_kw[f"sdpa_{lib}_ms"] = f"{t[0]:.4f}"
                 lib_kw[f"sdpa_{lib}_device_ms"] = \
-                    "not_seen" if t[1] is None else f"{t[1]:.4f}"
+                    f"{t[1]:.4f}"
         split_kw = {} if split is None else dict(
             split_tf32_bound_us=f"{split[0] * 1e3:.1f}",
             split_tf32_bound_by=split[1],
@@ -793,7 +992,7 @@ def phase_k1():
                             bound_ms=split[0], bound_by=split[1])
         del q, k, v, bias, got
         torch.cuda.empty_cache()
-    return worst, main, f32_main
+    return worst, main, f32_main, rel_main
 
 
 def k2_stages(img, nd, div, sharp):
@@ -932,7 +1131,7 @@ def profile_call(label, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or _annotation(e):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -941,7 +1140,7 @@ def profile_call(label, fn):
     total = sum(dev.values())
     if total <= 0:
         raise AssertionError("the profiler saw no device time")
-    k1 = sum(t for k, t in dev.items() if "flash_fwd" in k)
+    k1 = sum(t for k, t in dev.items() if K1_KERNEL in k)
     k2_sort = sum(t for k, t in dev.items() if "polylines_sort" in k)
     k2_sweep = sum(t for k, t in dev.items() if "polylines_sweep" in k)
     k2 = k2_sort + k2_sweep
@@ -1489,8 +1688,10 @@ def drive_boost(phase, name, images, profile=False):
     (boost_rmax 1600): a warm run on the first image, then a timed run of
     each image with every kernel count set to 0 just before it; K1 must
     run 24 times a forward of a BEiT model (two whole-image forwards, two a
-    chunk of patches), never for LeReS.  Returns the timed runs' K1
-    launches and the last image's R_x."""
+    chunk of patches), never for LeReS; a BEiT model's forwards whose
+    block bias is over the stream budget run K1's table mode, and there
+    must be some.  Returns the timed runs' K1 launches, those in table
+    mode, and the last image's R_x."""
     import numpy as np
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -1503,7 +1704,7 @@ def drive_boost(phase, name, images, profile=False):
     cache = PredictorCache()
     list(core_generation_funnel(None, images[:1], None, None, inp, ops,
                                 cache))
-    launches = 0
+    launches = rel = 0
     for image in images:
         h, w = image.shape[:2]
         torch.cuda.synchronize()
@@ -1515,6 +1716,7 @@ def drive_boost(phase, name, images, profile=False):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         k1 = fa.flash_attention_cuda.launches
+        by_mode = dict(fa.flash_attention_cuda.launches_by_mode)
         engine = cache._boost
         run = engine.last_run
         blocks = backbone_shape(engine.predictor.bundle.module)[0]
@@ -1524,39 +1726,44 @@ def drive_boost(phase, name, images, profile=False):
         log(phase, model=name, size=f"{h}x{w}", rf=engine.rf,
             R_x=run["whole_size"], patches=run["patches"],
             chunks=run["chunks"], s_per_image=f"{seconds:.3f}",
-            k1_launches=k1, k1_expected=want,
+            k1_launches=k1, k1_expected=want, k1_by_mode=by_mode,
             max_memory_allocated_GiB=f"{peak:.3f}",
             dtype=str(engine.predictor.compute_dtype))
         if [t for _, t, _ in out] != ["depth"] or d.dtype != np.uint16 or \
                 d.shape != (h, w) or int(d.max()) - int(d.min()) <= 0:
             raise AssertionError(f"{phase} {name}: outputs {out}")
-        if k1 != want:
-            raise AssertionError(f"{phase} {name}: K1 launched {k1} times, "
-                                 f"expected {want}")
+        if k1 != want or (blocks > 0) != (by_mode["rel"] > 0):
+            raise AssertionError(f"{phase} {name}: K1 launched {k1} times "
+                                 f"({by_mode}), expected {want}, table "
+                                 "mode on BEiT only")
         launches += k1
+        rel += by_mode["rel"]
         if profile:
             profile_paths(cache, inp, [(f"{phase}_{name}_{h}x{w}", [image])],
                           ops)
     cache.release()
     torch.cuda.empty_cache()
-    return launches, run["whole_size"]
+    return launches, rel, run["whole_size"]
 
 
 def phase_boost(profile: bool = False):
     """Boost at r_max 1600 on res101 (1080p and 4:3) and on
-    dpt_beit_large_512 (a textured 4:3 image: R_x 1536, N = 6913); then the
-    device chain and pix2pix, card against CPU."""
+    dpt_beit_large_512 (a textured 4:3 image: R_x 1536, N = 6913), every
+    K1 shape held by phase 2; then the device chain and pix2pix, card
+    against CPU."""
     os.environ["DEPTHMAP_ALLOW_RANDOM_PIX2PIX"] = "1"
-    drive_boost("13-boost", "res101",
-                [_test_images(13, [(1080, 1920)])[0],
-                 _test_images(14, [(768, 1024)])[0]], profile)
-    k1, whole = drive_boost("13-boost", "dpt_beit_large_512",
-                            [_textured(15, 768, 1024)], profile)
+    with k1_shapes() as shapes:
+        drive_boost("13-boost", "res101",
+                    [_test_images(13, [(1080, 1920)])[0],
+                     _test_images(14, [(768, 1024)])[0]], profile)
+        k1, rel, whole = drive_boost("13-boost", "dpt_beit_large_512",
+                                     [_textured(15, 768, 1024)], profile)
+    check_k1_shapes("13", shapes.seen)
     if whole != 1536:
         raise AssertionError(f"BEiT's Boost ran its whole image at R_x "
                              f"{whole}, not 1536")
     phase_boost_numerics()
-    return k1
+    return k1, rel
 
 
 def phase_boost_numerics():
@@ -2863,6 +3070,8 @@ def phase_splits(module, device: str = "cuda:0"):
     _zero_counts()
     boost_split, boost_split_ms = _timed(estimate)
     launches["split_boost"] = fa.flash_attention_cuda.launches
+    launches["split_boost_rel"] = \
+        fa.flash_attention_cuda.launches_by_mode["rel"]
     run = dict(engine.last_run)
     pred.devices = one
     boost_one, boost_ms = _timed(estimate)
@@ -2870,6 +3079,7 @@ def phase_splits(module, device: str = "cuda:0"):
     log("18c-split", path="boost", model="dpt_beit_large_512",
         size="384x512", R_x=run["whole_size"], patches=run["patches"],
         chunks=run["chunks"], k1_launches=launches["split_boost"],
+        k1_rel_launches=launches["split_boost_rel"],
         split_ms=f"{boost_split_ms:.2f}", unsplit_ms=f"{boost_ms:.2f}",
         max_abs_diff=f"{d:.3e}", atol=SPLIT_BOOST_ATOL)
     want = 24 * (2 + 2 * 2 * run["chunks"])
@@ -2950,11 +3160,7 @@ def phase_parallel():
         launches = phase_splits(module)
     del module
     torch.cuda.empty_cache()
-    missing = k1_shapes_not_held(shapes.seen)
-    log("18-k1-shapes", seen=len(shapes.seen), not_in_phase_2=missing)
-    if missing:
-        raise AssertionError(f"18: K1 ran at shapes phase 2 does not hold "
-                             f"against the plain version: {missing}")
+    check_k1_shapes("18", shapes.seen)
     t0 = time.perf_counter()
     graft_entry.dryrun_multichip(2)
     log("18d-dryrun", n_devices=2, s=f"{time.perf_counter() - t0:.1f}")
@@ -2963,7 +3169,100 @@ def phase_parallel():
                   launches["split_predict_batch"],
                   "split_boost": launches["split_boost"],
                   "split_marigold": launches["split_marigold"]}
-    return k1_by_path, launches["split_k2"][1], k1_grad
+    return (k1_by_path, {"split_boost": launches["split_boost_rel"]},
+            launches["split_k2"][1], k1_grad)
+
+
+# phase 19: BEiT-L 512's net sizes (one block's bf16 bias: 0.54, 3.2 and
+# 8.6 GB), and a stream budget over every one of them (the inline tier)
+STREAM_NET_SIZES = (1024, 1600, 2048)
+INLINE_BUDGET = 1 << 40
+
+
+def streamed_tiers(pred, img, size: int, build_s: float):
+    """Phase 19 at one net size: a warm and a timed forward in each tier,
+    checked as ``phase_streamed`` says; the timed runs' K1 launches and
+    those in table mode."""
+    import torch
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    n = (size // 16) ** 2 + 1
+    bias_bytes = 16 * n * n * 2
+    runs = {}
+    for tier in ("streamed", "inline"):
+        if tier == "inline":
+            os.environ["DEPTHMAP_BIAS_STREAM_BYTES"] = str(INLINE_BUDGET)
+        pred._forward(img, size, size)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        depth = pred._forward(img, size, size)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        os.environ.pop("DEPTHMAP_BIAS_STREAM_BYTES", None)
+        peak = torch.cuda.max_memory_allocated() - base
+        modes = dict(fa.flash_attention_cuda.launches_by_mode)
+        runs[tier] = (depth, peak, modes, fa.flash_attention_cuda.launches)
+        log("19-streamed", tier=tier, net=f"{size}x{size}", n=n,
+            forward_ms=f"{ms:.2f}", k1_by_mode=modes,
+            peak_over_weights_GiB=f"{peak / 2**30:.3f}",
+            one_block_bias_GiB=f"{bias_bytes / 2**30:.3f}",
+            build_s=f"{build_s:.1f}")
+    (ds, ps, ms_, ls), (di, pi, mi, li) = runs["streamed"], runs["inline"]
+    equal = bool(torch.equal(ds, di))
+    log("19-streamed", net=f"{size}x{size}", maps_equal=equal,
+        peak_inline_minus_streamed_GiB=f"{(pi - ps) / 2**30:.3f}")
+    if not equal or ms_ != {"none": 0, "bias": 0, "rel": 24} or \
+            mi != {"none": 0, "bias": 24, "rel": 0} or \
+            tuple(ds.shape) != (1, 1024, 1024) or \
+            not torch.isfinite(ds).all() or \
+            not float(ds.max() - ds.min()) > 0:
+        raise AssertionError(f"19 at {size}^2: maps equal {equal}, "
+                             f"K1 {ms_} / {mi}, {tuple(ds.shape)}")
+    if size == 2048 and not ps < bias_bytes <= pi:
+        raise AssertionError(f"19 at 2048^2: peaks {ps} (streamed) and "
+                             f"{pi} (inline) against one block's bias "
+                             f"{bias_bytes}")
+    return ls + li, ms_["rel"] + mi["rel"]
+
+
+def phase_streamed():
+    """Phase 19: dpt_beit_large_512 (bf16, random weights from seed 0)
+    through the predictor on one textured 1024^2 image at net 1024^2,
+    1600^2 and 2048^2 (N = 4097, 10001, 16385), in the streamed tier (the
+    default stream budget) and in the inline tier (DEPTHMAP_BIAS_STREAM_
+    BYTES = INLINE_BUDGET): each a warm forward, then a timed one with
+    every count set to 0 just before it.  The maps must be byte-equal
+    between the tiers; the streamed forwards launch K1 24 times in table
+    mode, the inline ones 24 times with a materialized bias; at 2048^2 the
+    streamed forward's peak allocation over the weights stays under one
+    block's bias (no (H, N, N) tensor), the inline one's reaches it; every
+    K1 shape is held by phase 2.  Returns the timed runs' K1 launches and
+    those in table mode."""
+    import tempfile
+    import numpy as np
+    import torch
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as empty:
+        pred = DepthPredictor(1, weights_dir=empty, seed=0, device="cuda")
+    build_s = time.perf_counter() - t0
+    img = torch.from_numpy(_textured(19, 1024, 1024).astype(np.float32)
+                           / 255.0).cuda()[None]
+    launches = rel = 0
+    with k1_shapes() as shapes:
+        try:
+            for size in STREAM_NET_SIZES:
+                k1, k1_rel = streamed_tiers(pred, img, size, build_s)
+                launches, rel = launches + k1, rel + k1_rel
+        finally:
+            os.environ.pop("DEPTHMAP_BIAS_STREAM_BYTES", None)
+    check_k1_shapes("19", shapes.seen)
+    del pred, img
+    torch.cuda.empty_cache()
+    return launches, rel
 
 
 def main() -> int:
@@ -2977,7 +3276,7 @@ def main() -> int:
         return out
     smi = timed("0", phase_environment)
     timed("1", phase_build)
-    k1_err, k1, k1_f32 = timed("2", phase_k1)
+    k1_err, k1, k1_f32, k1_rel = timed("2", phase_k1)
     k1_alpha = timed("2a", phase_k1_alpha)
     k2_err, k2 = timed("3", phase_k2)
     k1_by_path = {}
@@ -2992,8 +3291,10 @@ def main() -> int:
     k1_by_path.update(timed("10", phase_zoo, profile))
     k1_by_path.update(timed("12", phase_metric_zoo, profile))
     timed("11", phase_normalmap)
-    k1_by_path["boost_dpt_beit_large_512"] = timed("13", phase_boost,
-                                                   profile)
+    k1_by_path["boost_dpt_beit_large_512"], rel_boost = timed(
+        "13", phase_boost, profile)
+    # K1's table-mode launches on the paths that stream a BEiT bias
+    k1_rel_by_path = {"boost_dpt_beit_large_512": rel_boost}
     marigold, marigold_f32 = timed("14", phase_marigold, profile)
     k1_by_path.update({f"marigold_{dt}": n for dt, n in marigold.items()})
     # the f32 body's launches, read on the Marigold paths (the other model
@@ -3006,9 +3307,13 @@ def main() -> int:
     k1_rest, k2_rest = timed("17", phase_rest, profile)
     k1_by_path.update(k1_rest)
     k2_by_path.update(k2_rest)
-    k1_parallel, k2_by_path["split_1080p_eye"], k1_grad = timed(
-        "18", phase_parallel)
+    k1_parallel, k1_rel_parallel, k2_by_path["split_1080p_eye"], k1_grad = \
+        timed("18", phase_parallel)
     k1_by_path.update(k1_parallel)
+    k1_rel_by_path.update(k1_rel_parallel)
+    (k1_by_path["streamed_bias_beit_large_512"],
+     k1_rel_by_path["streamed_bias_beit_large_512"]) = timed(
+        "19", phase_streamed)
     k1_f32_by_path.update(train_step_beit_large_512=k1_parallel[
         "train_step_beit_large_512"], graft_entry=k1_parallel["graft_entry"])
     log("phases", seconds=seconds)
@@ -3029,7 +3334,8 @@ def main() -> int:
             sum(k1_by_path.values()), k1_err, k1,
             device_ms=k1["device_ms"], launches_by_path=k1_by_path,
             launches_f32_by_path=k1_f32_by_path, f32_main=k1_f32,
-            gradient=k1_grad,
+            gradient=k1_grad, launches_rel_by_path=k1_rel_by_path,
+            table_mode=k1_rel,
             bf16_alpha_signed_mean=k1_alpha["kernel"][0],
             bf16_alpha_stderr=k1_alpha["kernel"][1]),
         # K2's launches: its sweep's, one per eye of the BEiT paths' (the

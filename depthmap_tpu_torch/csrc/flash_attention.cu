@@ -16,6 +16,33 @@
 //    with rows of `ldb` elements (a multiple of 16; the columns past Nk
 //    are never read), heads and batch packed behind the rows.
 //
+// Table mode (BEiT's relative-position bias, each body's REL = true
+// instance).  Replaces the streamed tier of the JAX package
+// (depthmap_tpu/models/attention.py attention_rel_streamed: a (chunk, N)
+// bias tile gathered per 512-query chunk, then the Pallas call on it).
+// Here no bias is materialized at all: the kernel reads each bias value
+// straight from the block's (H, T) table, T = (2gh-1)(2gw-1)+3, through
+// the read-only path, at the index timm's gen_relative_position_index
+// gives the pair (token 0 is cls; tokens t >= 1 sit at row (t-1) / gw,
+// column (t-1) % gw of the gh x gw grid):
+//    idx = (r1 - r2 + gh - 1)(2gw - 1) + (c1 - c2 + gw - 1)
+//        = base(t1) - off(t2),  base = (r1 + gh - 1)(2gw-1) + c1 + gw - 1,
+//                               off = r2 (2gw-1) + c2,
+// and num_rel / num_rel + 1 / num_rel + 2 for cls -> token / token -> cls /
+// cls -> cls.  Each thread works out base() of its two query rows once and
+// off() of its 16 key columns once a tile; rows >= N and columns >= Nk
+// take the index of token N - 1, so no load leaves the table (their
+// scores are dropped or masked as in the other modes).  The table value
+// is in the input dtype and enters the same fmaf(x, scale, b) as a
+// materialized bias's: the answer is the materialized-bias call's, bit
+// for bit.  The stage drops its bias TMA box, so the call moves q, k, v
+// and out only: its bound is the operations, 4.B.H.N^2.D, with no bias
+// bytes (at (1, 16, 16385) 1.11 ms of bf16 tensor time against 2.57 ms
+// of bias bytes alone for the materialized call).  The table (2 MB for
+// 16 heads at a 128 x 128 grid) stays in L2, and a 64 x 64 tile touches
+// a few (2gw-1)-wide strips of it, which L1 holds.  Staging each tile's
+// strips in shared memory is not done yet.
+//
 // Two bodies, chosen by dtype, both on the tensor cores; neither falls
 // back to the other.
 //
@@ -220,13 +247,93 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ------------------------------------------------------------ table mode
+// p / gw for 0 <= p < 2^24: the f32 quotient is off by at most one, which
+// the remainder's sign fixes
+__device__ __forceinline__ int div_gw(int p, int gw, float inv_gw) {
+    const int r = __float2int_rz(__int2float_rn(p) * inv_gw);
+    const int m = p - r * gw;
+    return r + (m >= gw) - (m < 0);
+}
+
+// base() of query token t (see the head of the file), -1 for cls
+__device__ __forceinline__ int rel_base(int t, int gh, int gw,
+                                        float inv_gw) {
+    if (t == 0) return -1;
+    const int p = t - 1, r = div_gw(p, gw, inv_gw);
+    return (r + gh - 1) * (2 * gw - 1) + (p - r * gw) + gw - 1;
+}
+
+// off() of key token t, -1 for cls
+__device__ __forceinline__ int rel_off(int t, int gw, float inv_gw) {
+    if (t == 0) return -1;
+    const int p = t - 1;
+    return p + div_gw(p, gw, inv_gw) * (gw - 1);
+}
+
+__device__ __forceinline__ int rel_idx(int base, int off, int num_rel) {
+    return base < 0 ? (off < 0 ? num_rel + 2 : num_rel)
+                    : (off < 0 ? num_rel + 1 : base - off);
+}
+
+// a table entry through the read-only path, as f32 (bf16 widens exactly)
+__device__ __forceinline__ float table_at(const __nv_bfloat16* t, int i) {
+    return __uint_as_float(
+        (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(t) + i)
+        << 16);
+}
+__device__ __forceinline__ float table_at(const float* t, int i) {
+    return __ldg(t + i);
+}
+
+// What each thread keeps of the table: its head's row, and base() of its
+// two query rows (rows past N take token N - 1's).
+template <typename T>
+struct RelRows {
+    const T* tab;
+    int num_rel, gw;
+    float inv_gw;
+    int base[2];
+
+    __device__ __forceinline__ RelRows(const T* table, int T_len, int h,
+                                       int gh, int gw_, int row, int N)
+        : tab(table + (size_t)h * T_len), num_rel(T_len - 3), gw(gw_),
+          inv_gw(1.f / gw_) {
+        base[0] = rel_base(min(row, N - 1), gh, gw, inv_gw);
+        base[1] = rel_base(min(row + 8, N - 1), gh, gw, inv_gw);
+    }
+
+    // x = x.scale + bias for the accumulator's 32 scores of kv tile k0:
+    // sc[4 jj + 2 hh + e] is (row + 8 hh, k0 + 8 jj + cq + e)
+    __device__ __forceinline__ void add(float (&sc)[32], int k0, int cq,
+                                        int NK, float scale) const {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int off = rel_off(min(k0 + 8 * jj + cq + e, NK - 1),
+                                        gw, inv_gw);
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    float* x = sc + 4 * jj + 2 * hh + e;
+                    *x = fmaf(*x, scale,
+                              table_at(tab, rel_idx(base[hh], off, num_rel)));
+                }
+            }
+    }
+};
+
+// REL: table mode (has_bias is then 0: no bias tile is loaded)
+template <bool REL>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tb,
                __nv_bfloat16* __restrict__ out, int H, int N, int NK,
-               int has_bias, int bias_batch, float scale) {
+               int has_bias, int bias_batch, float scale,
+               const __nv_bfloat16* __restrict__ table, int T, int gh,
+               int gw) {
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -268,6 +375,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const int r_lo = warp * 16 + (lane >> 2);
     const int cq = 2 * (lane & 3);
     const int swz = lane >> 2;  // (row & 7) for both rows
+    // (a placeholder on a 1 x 1 grid in the other modes, never read)
+    const RelRows<__nv_bfloat16> rel = REL
+        ? RelRows<__nv_bfloat16>(table, T, h, gh, gw, q0 + r_lo, N)
+        : RelRows<__nv_bfloat16>(table, 3, 0, 1, 1, 0, 1);
 
     float o[32];
 #pragma unroll
@@ -294,7 +405,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         reg_fence(sc);
 
         // scores s.scale + bias
-        if (has_bias) {
+        const int k0 = j * BK;
+        if (REL) {
+            rel.add(sc, k0, cq, NK, scale);
+        } else if (has_bias) {
             const uint8_t* bt = gbase + OFF_B + s * TILE_BYTES;
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj)
@@ -312,7 +426,6 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
             for (int i = 0; i < 32; ++i) sc[i] *= scale;
         }
-        const int k0 = j * BK;
         if (k0 + BK > NK) {
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj)
@@ -535,12 +648,15 @@ split_kv_f32(const float* __restrict__ k, const float* __restrict__ v,
 // done with a stage refills it, so no warpgroup waits for another to
 // start its next tile.  Q's rows are split once into A fragments in
 // registers.
+// REL: table mode (has_bias is then 0: no bias box is loaded)
+template <bool REL>
 __global__ void __launch_bounds__(F_THREADS, 1)
 flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               const __grid_constant__ CUtensorMap tb,
               const float* __restrict__ q, float* __restrict__ out, int H,
-              int N, int NK, int has_bias, int bias_batch, float scale) {
+              int N, int NK, int has_bias, int bias_batch, float scale,
+              const float* __restrict__ table, int T, int gh, int gw) {
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -595,6 +711,10 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
     const int t = lane & 3;
     const int cq = 2 * t;
     const int row0 = q0 + wg * 64 + r_lo;
+    // (a placeholder on a 1 x 1 grid in the other modes, never read)
+    const RelRows<float> rel = REL
+        ? RelRows<float>(table, T, h, gh, gw, row0, N)
+        : RelRows<float>(table, 3, 0, 1, 1, 0, 1);
 
     // Q as split A fragments of m64n64k8: a0 (r_lo, t), a1 (r_lo + 8, t),
     // a2 (r_lo, t + 4), a3 (r_lo + 8, t + 4) of each 8 columns
@@ -641,7 +761,10 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
         reg_fence(sc);
 
         // scores s.scale + bias
-        if (has_bias) {
+        const int k0 = j * BK;
+        if (REL) {
+            rel.add(sc, k0, cq, NK, scale);
+        } else if (has_bias) {
             const uint8_t* bt = gbase + s * F_STAGE + F_OFF_B;
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj)
@@ -660,7 +783,6 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
             for (int i = 0; i < 32; ++i) sc[i] *= scale;
         }
-        const int k0 = j * BK;
         if (k0 + BK > NK) {
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj)
@@ -845,9 +967,17 @@ bool f32_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
                         box_rows);
 }
 
+// The relative-position table of table mode: (H, T) in the input dtype,
+// null in the other modes.
+struct RelTable {
+    const void* ptr;
+    int T, gh, gw;
+};
+
 int launch_bf16(const void* q, const void* k, const void* v,
-                const void* bias, void* out, int B, int H, int N, int NK,
-                int bias_batch, int ldb, float scale, cudaStream_t stream) {
+                const void* bias, const RelTable& rel, void* out, int B,
+                int H, int N, int NK, int bias_batch, int ldb, float scale,
+                cudaStream_t stream) {
     EncodeTiledFn encode = encode_tiled();
     if (!encode) return ERR_NO_ENCODE;
     CUtensorMap tq, tk, tv, tb = {};
@@ -859,14 +989,16 @@ int launch_bf16(const void* q, const void* k, const void* v,
         ok = bf16_map(encode, &tb, bias, NK, N, (uint64_t)bias_batch * H, ldb,
                       (uint64_t)N * ldb, BQ);
     if (!ok) return ERR_ENCODE;
+    auto kernel = rel.ptr ? flash_fwd_bf16<true> : flash_fwd_bf16<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kTcSmemBytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B, (N + BQ - 1) / BQ, H);  // batch fastest
-    flash_fwd_bf16<<<grid, TC_THREADS, kTcSmemBytes, stream>>>(
+    kernel<<<grid, TC_THREADS, kTcSmemBytes, stream>>>(
         tq, tk, tv, tb, (__nv_bfloat16*)out, H, N, NK, bias != nullptr,
-        bias_batch, scale);
+        bias_batch, scale, (const __nv_bfloat16*)rel.ptr, rel.T, rel.gh,
+        rel.gw);
     return (int)cudaGetLastError();
 }
 
@@ -874,8 +1006,9 @@ int padded_keys(int NK) { return (NK + BK - 1) / BK * BK; }
 
 // ws: flash_attention_workspace_bytes(B, H, NK, 0) bytes, 16-byte aligned
 int launch_f32(const void* q, const void* k, const void* v, const void* bias,
-               void* out, void* ws, int B, int H, int N, int NK,
-               int bias_batch, int ldb, float scale, cudaStream_t stream) {
+               const RelTable& rel, void* out, void* ws, int B, int H, int N,
+               int NK, int bias_batch, int ldb, float scale,
+               cudaStream_t stream) {
     EncodeTiledFn encode = encode_tiled();
     if (!encode) return ERR_NO_ENCODE;
     const int NKP = padded_keys(NK);
@@ -894,16 +1027,17 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias,
         (const float*)k, (const float*)v, (float*)ws, NK, NKP);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_fwd_f32,
+    auto kernel = rel.ptr ? flash_fwd_f32<true> : flash_fwd_f32<false>;
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kF32SmemBytes);
     if (err != cudaSuccess) return (int)err;
     // query tiles fastest: the CTAs that read one head's K and V run
     // together and find them in L2
     dim3 grid((N + F_BQ - 1) / F_BQ, B, H);
-    flash_fwd_f32<<<grid, F_THREADS, kF32SmemBytes, stream>>>(
+    kernel<<<grid, F_THREADS, kF32SmemBytes, stream>>>(
         tk, tv, tb, (const float*)q, (float*)out, H, N, NK, bias != nullptr,
-        bias_batch, scale);
+        bias_batch, scale, (const float*)rel.ptr, rel.T, rel.gh, rel.gw);
     return (int)cudaGetLastError();
 }
 
@@ -925,24 +1059,34 @@ size_t flash_attention_smem_bytes(int dtype) {
 
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null; bias_batch is its
 // leading dim (1 = shared across the batch, B = per batch element) and
-// bias_ld its row stride in elements (a multiple of 16, >= NK).  workspace:
-// flash_attention_workspace_bytes(B, H, NK, dtype) bytes (null for bf16).
-// Returns 0 on success, a cudaError_t, or a negative code of this file.
+// bias_ld its row stride in elements (a multiple of 16, >= NK).  table
+// (table mode; null otherwise, and then bias must be null): the (H,
+// table_len) relative-position table in the input dtype, shared across
+// the batch, of a gh x gw grid: table_len = (2gh-1)(2gw-1)+3 and N = NK =
+// gh.gw + 1.  workspace: flash_attention_workspace_bytes(B, H, NK, dtype)
+// bytes (null for bf16).  Returns 0 on success, a cudaError_t, or a
+// negative code of this file.
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            const void* bias, void* out, void* workspace,
-                            int B, int H, int N, int NK, int head_dim,
-                            int bias_batch, int bias_ld, float scale,
+                            const void* bias, const void* table, void* out,
+                            void* workspace, int B, int H, int N, int NK,
+                            int head_dim, int bias_batch, int bias_ld,
+                            int table_len, int gh, int gw, float scale,
                             int dtype, void* stream) {
     if (head_dim != D || N < 1 || NK < 1 || B < 1 || H < 1 || B > 65535 ||
         H > 65535 || (bias && (bias_ld < NK || bias_ld % 16 != 0)) ||
         (dtype == 0 && !workspace))
         return (int)cudaErrorInvalidValue;
+    if (table && (bias || gh < 1 || gw < 1 || N != NK ||
+                  (long long)gh * gw + 1 != N ||
+                  table_len != (2 * gh - 1) * (2 * gw - 1) + 3))
+        return (int)cudaErrorInvalidValue;
+    const RelTable rel = {table, table_len, gh, gw};
     cudaStream_t s = (cudaStream_t)stream;
     if (dtype == 0)
-        return launch_f32(q, k, v, bias, out, workspace, B, H, N, NK,
+        return launch_f32(q, k, v, bias, rel, out, workspace, B, H, N, NK,
                           bias_batch, bias_ld, scale, s);
     if (dtype == 1)
-        return launch_bf16(q, k, v, bias, out, B, H, N, NK, bias_batch,
+        return launch_bf16(q, k, v, bias, rel, out, B, H, N, NK, bias_batch,
                            bias_ld, scale, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -211,6 +211,9 @@ def make_server(host: str = "127.0.0.1", port: int = 7860) -> HTTPServer:
 
 
 def serve(host: str = "127.0.0.1", port: int = 7860):
+    # the funnel's imports (torch, the models: seconds on a busy host)
+    # before the server listens, so that no request waits for them
+    import depthmap_tpu_torch.pipeline.core  # noqa: F401
     srv = make_server(host, port)
     print(f"depthmap_tpu_torch API on http://{host}:{port} "
           f"(DO NOT HOST PUBLICLY)", flush=True)

@@ -1,59 +1,67 @@
-"""BEiT backbone for MiDaS 3.1 (dpt_beit_large_512 / _384).
+"""BEiT backbone for MiDaS 3.1 (dpt_beit_large_512 / _384, dpt_beit_base_384).
 
 Port of ``depthmap_tpu/models/beit.py``: no absolute position embedding;
 every block adds a relative-position bias to its attention logits, built
 from the block's (2Wh-1)(2Ww-1)+3 table.  At a window other than the
 training one, the token-token part of the table is bilinearly resized,
 laid out width-major as the reference does; the 3 cls rows stay verbatim.
+
+The bias has three tiers, as in the JAX package: all ``depth`` biases
+hoisted once per grid under BIAS_HOIST_CAP (``grid_inputs``); above it
+each block gathers its own (1, H, N, N) bias inline; and when one block's
+bias (H.N^2 in the input's dtype) would exceed DEPTHMAP_BIAS_STREAM_BYTES,
+each block hands attention only its resized table (``RelBiasSpec``), and
+nothing quadratic is materialized (models/attention.py).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from depthmap_tpu_torch.models.attention import RelBiasSpec, gather_rel_bias
 from depthmap_tpu_torch.models.transformer import Block, PatchEmbed
-from depthmap_tpu_torch.ops.flash_attention import bias_row_len
+from depthmap_tpu_torch.ops.flash_attention import rel_pos_index
 from depthmap_tpu_torch.ops.resize import interpolate
 
 # All `depth` hoisted rel-pos biases stay resident below this many bytes;
 # above it each block builds its bias inline (one resident at a time).
 BIAS_HOIST_CAP = 2 << 30
+# One block's bias above this many bytes streams (the JAX package's
+# default of DEPTHMAP_BIAS_STREAM_BYTES)
+BIAS_STREAM_BYTES = 256 << 20
+
+
+def streams_bias(num_heads: int, n: int, dtype: torch.dtype) -> bool:
+    """Whether a block's (H, N, N) bias in ``dtype`` is over the stream
+    budget, DEPTHMAP_BIAS_STREAM_BYTES read at call time (the JAX
+    package's expression: N unpadded, the backbone input's itemsize)."""
+    budget = int(os.environ.get("DEPTHMAP_BIAS_STREAM_BYTES",
+                                BIAS_STREAM_BYTES))
+    return num_heads * n * n * dtype.itemsize > budget
 
 
 def gen_relative_position_index(wh: int, ww: int, device=None,
                                 ld: Optional[int] = None) -> torch.Tensor:
-    """(wh*ww+1, ld) int64 index into the bias table (``ld`` defaults to
-    wh*ww+1; columns past it index entry 0), built on ``device`` (a
-    host-built index would cross to the card on every forward of the
-    inline-bias path)."""
-    num_rel = (2 * wh - 1) * (2 * ww - 1)
-    rows = torch.arange(wh, device=device).repeat_interleave(ww)
-    cols = torch.arange(ww, device=device).repeat(wh)
-    n = wh * ww
-    ld = n + 1 if ld is None else ld
-    index = torch.empty((n + 1, ld), dtype=torch.int64, device=device)
-    index[1:, 1:n + 1] = ((rows[:, None] - rows[None, :] + wh - 1)
-                          * (2 * ww - 1) + cols[:, None] - cols[None, :]
-                          + ww - 1)
-    # timm layout: token-token in [0, num_rel); cls->token = num_rel;
-    # token->cls = num_rel+1; cls->cls = num_rel+2
-    index[0, :n + 1] = num_rel
-    index[:, 0] = num_rel + 1
-    index[0, 0] = num_rel + 2
-    index[:, n + 1:] = 0
+    """(wh*ww+1, ld) int64 index into the bias table in timm's layout
+    (``ld`` defaults to wh*ww+1; columns past it index entry 0), built on
+    ``device`` by the formula K1's table mode computes
+    (``rel_pos_index``)."""
+    n = wh * ww + 1
+    t = torch.arange(n if ld is None else ld, device=device)
+    index = rel_pos_index(t[:n], t.clamp(max=n - 1), (wh, ww))
+    index[:, n:] = 0
     return index
 
 
-def rel_pos_bias(table: torch.Tensor, train_window: Tuple[int, int],
-                 window: Tuple[int, int],
-                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(num_rel + 3, H) table at train_window -> (1, H, N, N) bias for
-    ``window`` (N = wh*ww + 1), in ``dtype`` (default: the table's) and on
-    the table's device.  The bias is the ``[..., :N]`` view of a
-    (1, H, N, bias_row_len(N)) buffer: the padded-row layout kernel K1
-    reads with no copy."""
+def rel_pos_table(table: torch.Tensor, train_window: Tuple[int, int],
+                  window: Tuple[int, int],
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(num_rel + 3, H) table at train_window -> the (num_rel' + 3, H)
+    table of ``window``, in ``dtype`` (default: the table's); the
+    counterpart of ``RelPosBias(table_only=True)``."""
     twh, tww = train_window
     wh, ww = window
     nh = table.shape[1]
@@ -71,12 +79,21 @@ def rel_pos_bias(table: torch.Tensor, train_window: Tuple[int, int],
         # cast the table, not the bias: a cast of the padded view would
         # return a dense copy (a gather is exact, so the values agree)
         table = table.to(dtype)
-    n = wh * ww + 1
-    ld = bias_row_len(n)
-    idx = gen_relative_position_index(wh, ww, table.device, ld)
-    # gather straight into the padded (H, N, ld) layout the kernel reads
-    bias = table.t().contiguous().index_select(1, idx.view(-1))
-    return bias.view(1, nh, n, ld)[..., :n]
+    return table
+
+
+def rel_pos_bias(table: torch.Tensor, train_window: Tuple[int, int],
+                 window: Tuple[int, int],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(num_rel + 3, H) table at train_window -> (1, H, N, N) bias for
+    ``window`` (N = wh*ww + 1), in ``dtype`` (default: the table's) and on
+    the table's device, gathered from ``rel_pos_table``.  The bias is the
+    ``[..., :N]`` view of a (1, H, N, bias_row_len(N)) buffer: the
+    padded-row layout kernel K1 reads with no copy."""
+    table = rel_pos_table(table, train_window, window, dtype)
+    n = window[0] * window[1] + 1
+    return gather_rel_bias(table, torch.arange(n, device=table.device), n,
+                           window)
 
 
 class BeitModel(nn.Module):
@@ -129,6 +146,12 @@ class BeitBackbone(nn.Module):
         table = self.model.blocks[i].attn.relative_position_bias_table
         return rel_pos_bias(table, self.model.train_window, window, dtype)
 
+    def block_table(self, i: int, window: Tuple[int, int]) -> RelBiasSpec:
+        """Block i's streamed bias: its table resized to ``window``."""
+        table = self.model.blocks[i].attn.relative_position_bias_table
+        return RelBiasSpec(rel_pos_table(table, self.model.train_window,
+                                         window), *window)
+
     def grid_inputs(self, grid: Tuple[int, int],
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """The forward's per-grid keyword inputs: all ``depth`` biases
@@ -145,15 +168,24 @@ class BeitBackbone(nn.Module):
     def forward(self, x, rel_bias: Optional[Sequence[torch.Tensor]] = None):
         """rel_bias: optional ``depth`` precomputed (1, H, N, N) biases
         (``precompute_rel_biases``); without it each block builds its bias
-        inline, so at most one bias is resident."""
+        inline, so at most one bias is resident, or, when one block's bias
+        in x's dtype is over the stream budget (``streams_bias``), hands
+        attention its resized table."""
         tokens, grid = self.model.patch_embed(x)
         cls = self.model.cls_token.expand(tokens.shape[0], -1, -1)
         tokens = torch.cat([cls, tokens], 1)
+        stream = rel_bias is None and streams_bias(
+            self.num_heads, grid[0] * grid[1] + 1, x.dtype)
         feats = []
         for i, blk in enumerate(self.model.blocks):
-            bias = rel_bias[i] if rel_bias is not None else \
-                self.block_bias(i, grid)
+            if rel_bias is not None:
+                bias = rel_bias[i]
+            elif stream:
+                bias = self.block_table(i, grid)
+            else:
+                bias = self.block_bias(i, grid)
             tokens = blk(tokens, bias)
+            del bias   # an inline bias goes before the next is built
             if i in self.hooks:
                 feats.append(tokens)
         return feats, grid
@@ -161,6 +193,11 @@ class BeitBackbone(nn.Module):
 
 def beit_large(img_size: int, hooks=(5, 11, 17, 23)) -> BeitBackbone:
     return BeitBackbone(embed_dim=1024, depth=24, num_heads=16, hooks=hooks,
+                        train_img_size=img_size)
+
+
+def beit_base(img_size: int = 384, hooks=(2, 5, 8, 11)) -> BeitBackbone:
+    return BeitBackbone(embed_dim=768, depth=12, num_heads=12, hooks=hooks,
                         train_img_size=img_size)
 
 

@@ -95,14 +95,23 @@ class DPTDepthModel(nn.Module):
 
 
 def build_dpt(variant: str) -> DPTDepthModel:
-    """variant in {beitl16_512, beitl16_384, vitl16_384, vitb_rn50_384}."""
+    """variant in {beitl16_512, beitl16_384, vitl16_384, vitb_rn50_384}
+    (+ vitb16_384, beitb16_384, as the JAX ``build_dpt`` keeps them)."""
     from depthmap_tpu_torch.models import beit, vit
     if variant == "beitl16_512":
         return DPTDepthModel(beit.beit_large(512))
     if variant == "beitl16_384":
         return DPTDepthModel(beit.beit_large(384))
+    if variant == "beitb16_384":
+        return DPTDepthModel(beit.beit_base(384),
+                             reassemble_channels=(96, 192, 384, 768))
     if variant == "vitl16_384":
         return DPTDepthModel(vit.vit_large_384())
+    if variant == "vitb16_384":
+        return DPTDepthModel(
+            vit.VitBackbone(embed_dim=768, depth=12, num_heads=12,
+                            hooks=(2, 5, 8, 11)),
+            reassemble_channels=(96, 192, 384, 768))
     if variant == "vitb_rn50_384":
         return DPTDepthModel(vit.HybridVitBackbone(),
                              reassemble_channels=(256, 512, 768, 768))

@@ -15,6 +15,13 @@ A gradient goes through ``FlashAttentionFunction``: K1's forward, and a
 backward in ordinary torch (``attention_grads``).  Without grad, or with
 no input that requires it, the forward runs alone and saves nothing.
 
+Table mode (``flash_attention_rel``): BEiT's relative-position bias read
+by the kernel straight from the block's (H, T) table, T = (2gh-1)(2gw-1)
++ 3, at the index ``rel_pos_index`` restates; no bias is materialized.
+It takes CUDA tensors only, as ``flash_attention_cuda`` does; its plain
+version is ``models/attention.py attention_rel_streamed``, where
+``attention`` sends a ``RelBiasSpec`` on CPU tensors.
+
 The bias layout the kernel reads: rows padded to a multiple of
 ``BIAS_ROW_ALIGN`` elements (a 16-byte-aligned row for TMA, and one that
 SDPA's efficient backend also takes without a copy), heads and batch packed
@@ -25,7 +32,7 @@ dense bias into it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -116,13 +123,34 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
 
 
+def rel_pos_index(tq: torch.Tensor, tk: torch.Tensor,
+                  grid: Tuple[int, int]) -> torch.Tensor:
+    """(len(tq), len(tk)) int64 index into a (num_rel + 3)-entry
+    relative-position table of query tokens ``tq`` against key tokens
+    ``tk`` on a (gh, gw) grid (token 0 the cls token, token t >= 1 at row
+    (t-1) // gw, column (t-1) % gw), as K1's table mode computes it:
+    base(tq) - off(tk), with base = (r + gh - 1)(2gw - 1) + c + gw - 1 and
+    off = r (2gw - 1) + c; cls -> token num_rel, token -> cls num_rel + 1,
+    cls -> cls num_rel + 2 (the timm layout of
+    ``models/beit.py gen_relative_position_index``)."""
+    gh, gw = grid
+    num_rel = (2 * gh - 1) * (2 * gw - 1)
+    pq, pk = (tq - 1).clamp(min=0), (tk - 1).clamp(min=0)
+    base = (pq // gw + gh - 1) * (2 * gw - 1) + pq % gw + gw - 1
+    off = pk // gw * (2 * gw - 1) + pk % gw
+    idx = base[:, None] - off[None, :]
+    q_cls, k_cls = (tq == 0)[:, None], (tk == 0)[None, :]
+    idx = torch.where(k_cls, num_rel + 1, idx)
+    return torch.where(q_cls, torch.where(k_cls, num_rel + 2, num_rel), idx)
+
+
 def _lib():
     lib = cuda_build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.flash_attention_forward.argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-            ctypes.c_float, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+            ci, ctypes.c_float, ci, vp]
         lib.flash_attention_forward.restype = ci
         lib.flash_attention_workspace_bytes.argtypes = [ci, ci, ci, ci]
         lib.flash_attention_workspace_bytes.restype = sz
@@ -140,7 +168,33 @@ def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
     contiguous; bias (1|B, H, N, Nk) or (H, N, Nk) in the padded-row layout
     (``bias_row_stride``); all on one CUDA device, in one dtype (float32
     or bfloat16)."""
-    tensors = [q, k, v] + ([bias] if bias is not None else [])
+    return _launch(q, k, v, bias, None, None, scale)
+
+
+def flash_attention_rel(q, k, v, table: torch.Tensor,
+                        grid: Tuple[int, int],
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """K1's table mode: softmax(q.k^T * scale + bias) . v with
+    bias[h, t1, t2] = table[h, rel_pos_index(t1, t2, grid)].  q, k, v:
+    (B, H, N, 64) with N = gh.gw + 1; table (H, (2gh-1)(2gw-1)+3),
+    contiguous, in q's dtype, shared across the batch, all on one CUDA
+    device; anything else raises."""
+    gh, gw = (int(g) for g in grid)
+    b, h, n = q.shape[:3]
+    t = (2 * gh - 1) * (2 * gw - 1) + 3
+    if n != gh * gw + 1 or k.shape[2] != n:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: table "
+                         f"mode takes N = Nk = gh.gw + 1 = {gh * gw + 1} "
+                         f"for the grid {(gh, gw)}")
+    if table.dim() != 2 or tuple(table.shape) != (h, t) or \
+            not table.is_contiguous():
+        raise ValueError(f"table of shape {tuple(table.shape)}: table "
+                         f"mode takes a contiguous ({h}, {t}) table")
+    return _launch(q, k, v, None, table, (gh, gw), scale)
+
+
+def _launch(q, k, v, bias, table, grid, scale) -> torch.Tensor:
+    tensors = [q, k, v] + [t for t in (bias, table) if t is not None]
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if len({t.device for t in tensors}) != 1:
@@ -174,27 +228,37 @@ def flash_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            table.data_ptr() if table is not None else None, out.data_ptr(),
             ws.data_ptr() if ws is not None else None,
             b, h, n, nk, d, bias.shape[0] if bias is not None else 0,
-            ldb, float(scale), code, stream)
+            ldb, table.shape[1] if table is not None else 0,
+            *(grid or (0, 0)), float(scale), code, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_dtype[str(q.dtype)[6:]] += 1
+    mode = "rel" if table is not None else "bias" if bias is not None \
+        else "none"
+    flash_attention_cuda.launches_by_mode[mode] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+# each launch's mode: bias-free, a materialized bias, the rel-pos table
+flash_attention_cuda.launches_by_mode = {"none": 0, "bias": 0, "rel": 0}
 
 
 def reset_launches() -> None:
-    """Set K1's launch counts, the total and each dtype's, to 0."""
+    """Set K1's launch counts, the total, each dtype's and each mode's, to
+    0."""
     flash_attention_cuda.launches = 0
-    for dt in flash_attention_cuda.launches_by_dtype:
-        flash_attention_cuda.launches_by_dtype[dt] = 0
+    for counts in (flash_attention_cuda.launches_by_dtype,
+                   flash_attention_cuda.launches_by_mode):
+        for key in counts:
+            counts[key] = 0
 
 
 def _forward(q, k, v, bias, scale) -> torch.Tensor:

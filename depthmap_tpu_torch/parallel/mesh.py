@@ -22,8 +22,9 @@ f / g operators written out, where XLA reshards in the global view:
   biases (``qkv.bias``, BEiT's ``q_bias`` / ``k_bias`` / ``v_bias``,
   ``fc1.bias``) follow their weight's split: replicated in JAX, which is
   right only in the global view.
-- The attention runs on the rank's H / tp heads, with BEiT's bias sliced
-  to them; the rel-pos table stays replicated.  The input of the attention
+- The attention runs on the rank's H / tp heads, with BEiT's bias (or,
+  in the streamed tier, the resized table's head columns) sliced to them;
+  the rel-pos table stays replicated.  The input of the attention
   and of the MLP passes f (identity forward, an all-reduce of its gradient
   over "model"), so the table's and the input's gradients sum the ranks'
   heads.
@@ -45,6 +46,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from depthmap_tpu_torch.models.attention import RelBiasSpec
 
 _COL_PARALLEL = re.compile(r"(qkv|fc1)$")
 _ROW_PARALLEL = re.compile(r"(proj|fc2)$")
@@ -191,13 +194,20 @@ class RowParallelLinear(nn.Linear):
 
 def _attn_pre_hook(mod, args):
     """f on the attention's input; BEiT's bias through f, then its rank's
-    heads."""
+    heads: axis -3 of a (1, H, N, N) bias, the last axis of a streamed
+    block's (T, H) table (``RelBiasSpec``)."""
     x, *rest = args
     x = _CopyToModel.apply(x, mod.tp_group)
     if rest and rest[0] is not None:
         start, count = mod.tp_heads
-        rest[0] = _CopyToModel.apply(rest[0], mod.tp_group).narrow(
-            -3, start, count)
+        bias = rest[0]
+        if isinstance(bias, RelBiasSpec):
+            rest[0] = RelBiasSpec(_CopyToModel.apply(
+                bias.table, mod.tp_group).narrow(-1, start, count),
+                bias.gh, bias.gw)
+        else:
+            rest[0] = _CopyToModel.apply(bias, mod.tp_group).narrow(
+                -3, start, count)
     return (x, *rest)
 
 

@@ -964,3 +964,127 @@ def test_splits_over_the_card_and_the_cpu_copy_the_modules(monkeypatch):
         base=64, vae_base=32, context_dim=64), seed=3).state_dict())
     assert replica(pipe, cpu) is not first
     close(pipe.members(devices=mixed, **run), pipe.members(**run))
+
+
+# -- K1's table mode: BEiT's streamed rel-pos bias -------------------------
+
+# case: (dtype, B, H, (gh, gw)).  4:3 and square grids in both bodies;
+# Boost's whole image at R_x 1024 on a 4:3 input (48 x 64); a grid whose
+# N (36) is less than one tile, at 4 heads
+REL_CASES = {
+    "bf16_43": (torch.bfloat16, 2, 16, (12, 16)),
+    "bf16_square": (torch.bfloat16, 1, 16, (16, 16)),
+    "f32_43": (torch.float32, 2, 16, (12, 16)),
+    "f32_square": (torch.float32, 1, 16, (16, 16)),
+    "bf16_boost_43": (torch.bfloat16, 1, 16, (48, 64)),
+    "f32_short": (torch.float32, 1, 4, (5, 7)),
+}
+
+
+def _rel_inputs(dt, b, h, grid, seed=4):
+    """q x4, k, v x1/4 and a (num_rel + 3, H) table ~ 3 N(0, 1) (a spread
+    of a few units, so a wrong index shows), on the card in ``dt``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    gh, gw = grid
+    n = gh * gw + 1
+    t = (2 * gh - 1) * (2 * gw - 1) + 3
+
+    def mk(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to("cuda", dt)
+    return (mk(b, h, n, 64, s=4.0), mk(b, h, n, 64), mk(b, h, n, 64, s=0.25),
+            mk(t, h, s=3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(REL_CASES))
+def test_flash_attention_table_mode(case):
+    """Table mode is byte-equal to K1 with the bias materialized from the
+    same table (rel_pos_bias, the padded-row layout), within the K1 bound
+    of the plain streamed version on the card, and counted as a "rel"
+    launch; the answers of two planted faults, gh and gw swapped (4:3
+    grids) and the two cls entries swapped, break the bound."""
+    from depthmap_tpu_torch.models import attention as A
+    from depthmap_tpu_torch.models.beit import rel_pos_bias
+    _needs_card()
+    dt, b, h, grid = REL_CASES[case]
+    q, k, v, table = _rel_inputs(dt, b, h, grid)
+    before = dict(fa.flash_attention_cuda.launches_by_mode)
+    got = fa.flash_attention_rel(q, k, v, table.t().contiguous(), grid)
+    torch.cuda.synchronize()
+    after = fa.flash_attention_cuda.launches_by_mode
+    assert after["rel"] == before["rel"] + 1
+    assert after["bias"] == before["bias"]
+    materialized = fa.flash_attention_cuda(
+        q, k, v, rel_pos_bias(table, grid, grid))
+    assert torch.equal(got, materialized)
+    want = A.attention_rel_streamed(q, k, v, A.RelBiasSpec(table, *grid))
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2e-2 if dt == torch.bfloat16 else F32_ACCURACY
+    assert err <= tol, err
+    num_rel = table.shape[0] - 3
+    swapped = table.clone()
+    swapped[[num_rel, num_rel + 1]] = table[[num_rel + 1, num_rel]]
+    faults = {"cls_swapped": A.attention_rel_streamed(
+        q, k, v, A.RelBiasSpec(swapped, *grid))}
+    if grid[0] != grid[1]:
+        faults["grid_swapped"] = A.attention_rel_streamed(
+            q, k, v, A.RelBiasSpec(table, grid[1], grid[0]))
+    for name, f in faults.items():
+        assert (f.float() - want.float()).abs().max().item() > tol, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_table_mode_refuses_what_it_does_not_take():
+    """A table in another dtype and a grid that does not give N raise;
+    nothing launches."""
+    _needs_card()
+    q, k, v, table = _rel_inputs(torch.bfloat16, 1, 16, (3, 4))
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(TypeError):
+        fa.flash_attention_rel(q, k, v, table.t().float().contiguous(),
+                               (3, 4))
+    with pytest.raises(ValueError):
+        fa.flash_attention_rel(q, k, v, table.t().contiguous(), (4, 4))
+    assert fa.flash_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_small_beit_streamed_gradient_matches_hoisted(monkeypatch):
+    """A small BEiT backbone (2 blocks, 128 wide, 2 heads of 64) in f32 on
+    the card under grad: with DEPTHMAP_BIAS_STREAM_BYTES=0 its blocks
+    stream (the chunked gather into K1, the table's gradient through the
+    gather), and the loss and every parameter's gradient, the tables'
+    included, match the run with the biases built up front and passed in
+    (rel_bias, built under grad); without grad the streamed forward runs
+    K1's table mode, one launch a block."""
+    from depthmap_tpu_torch.models.beit import BeitBackbone
+    from depthmap_tpu_torch.models.weights import init_random_
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bb = init_random_(BeitBackbone(embed_dim=128, depth=2, num_heads=2,
+                                   hooks=(0, 1), train_img_size=64), 5)
+    bb = bb.cuda()
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 3, 64, 96)).astype(np.float32)).cuda()
+    grid = (4, 6)
+
+    def run(rel_bias=None):
+        bb.zero_grad()
+        feats, _ = bb(x, rel_bias=rel_bias)
+        loss = sum((f * f).mean() for f in feats)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in bb.named_parameters()}
+    hoisted = run(tuple(bb.block_bias(i, grid) for i in range(2)))
+    monkeypatch.setenv("DEPTHMAP_BIAS_STREAM_BYTES", "0")
+    streamed = run()
+    assert streamed[0] == pytest.approx(hoisted[0], rel=1e-6)
+    for name, g in hoisted[1].items():
+        err = (streamed[1][name] - g).abs().max().item()
+        assert err <= 1e-5 * max(g.abs().max().item(), 1e-12), name
+    assert hoisted[1]["model.blocks.0.attn.relative_position_bias_table"] \
+        .abs().max() > 0
+    before = fa.flash_attention_cuda.launches_by_mode["rel"]
+    with torch.no_grad():
+        bb(x)
+    assert fa.flash_attention_cuda.launches_by_mode["rel"] == before + 2

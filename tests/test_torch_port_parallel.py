@@ -12,7 +12,7 @@ the CPU.
   nothing full-width is allocated.
 - The sharded train step in spawned gloo processes (file store, timeouts)
   at data = 2 and at model = 2 (the tiny ViT DPT, and a BEiT one for its
-  sliced bias), against the world-1 step on the whole batch: the loss (rtol 1e-5), the gradients and the updated parameters
+  sliced bias, inline and streamed), against the world-1 step on the whole batch: the loss (rtol 1e-5), the gradients and the updated parameters
   at the bounds of tests/test_torch_port_train.py (the step's gradient
   moves with the forward's last bits where the ReLU head leaves pred near
   0, and Adam's first step flips with a gradient's sign near 0).
@@ -137,11 +137,17 @@ def world_1_step(backbone: str):
 def test_gloo_step_matches_world_1(data, model, backbone):
     """At model = 2 each rank holds one of the 2 heads; the BEiT case
     slices the rel-pos bias to it and sums the tables' gradients."""
+    assert_gloo_step_matches(data, model, backbone, world_1_step(backbone))
+
+
+def assert_gloo_step_matches(data, model, backbone, want):
+    """The sharded step in data x model gloo processes against ``want``,
+    the world-1 step's (loss, gradients, updated parameters)."""
     loss, shape, grads, params = graft_entry.spawn_gloo(
         data * model, graft_entry.train_worker,
         (model, 2, True, backbone), 120.0)
     assert shape == {"data": data, "model": model}
-    want_loss, want_g, want_p = world_1_step(backbone)
+    want_loss, want_g, want_p = want
     np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
     assert set(grads) == set(want_g) and set(params) == set(want_p)
     assert_grads_close(grads, want_g, want_g, STEP_GRAD_RTOL)
@@ -154,6 +160,23 @@ def test_gloo_step_matches_world_1(data, model, backbone):
             firm = np.abs(want_g[k]) > STEP_GRAD_RTOL * np.abs(
                 want_g[k]).max()
             assert err[firm].max(initial=0) <= 1e-6, k
+
+
+def test_gloo_beit_streamed_step_matches_world_1(monkeypatch):
+    """The BEiT case at model = 2 in the streamed tier (a stream budget of
+    0): each rank's attention gets its heads' columns of the resized table,
+    and the step's loss, gradients (the tables' included) and parameters
+    match the world-1 streamed step's."""
+    from depthmap_tpu_torch.models import attention as tattn
+    monkeypatch.setenv("DEPTHMAP_BIAS_STREAM_BYTES", "0")
+    calls = []
+    real = tattn.attention_rel_streamed
+    monkeypatch.setattr(tattn, "attention_rel_streamed",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    want = world_1_step.__wrapped__("beit")
+    assert calls, "the world-1 step did not stream"
+    assert any("relative_position_bias_table" in k for k in want[1])
+    assert_gloo_step_matches(1, 2, "beit", want)
 
 
 def test_split_run_shards_in_order():

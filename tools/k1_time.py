@@ -2,7 +2,7 @@
 """Check and time K1 (flash_attention_cuda) of the port in one or more
 source trees, on one CUDA card.
 
-    python3 tools/k1_time.py [--all | --alpha] [TREE ...]
+    python3 tools/k1_time.py [--all | --alpha | --rel] [TREE ...]
 
 Each tree (default: this checkout) runs in a process of its own, which
 builds that tree's kernels, prints ptxas's report and the SASS counts of
@@ -16,11 +16,17 @@ the max abs error against the tree's plain version (f32 cases: the
 kernel's and the plain version's against softmax in f64), the time per
 call as a caller sees it (CUDA events over calls issued back to back), the
 device
-time per call of each kernel the call launches (torch.profiler), SDPA's
+time per call of each kernel the call launches (torch.profiler, null
+where no profile saw every launch), SDPA's
 efficient and cuDNN backends on the same tensors (device ms, or
-"refused"), and the bounds of chip_smoke.k1_bound.  To compare two
-commits, unpack both and give them as parent, change, change, parent.  The
-card's name and power limit come first.
+"refused"), and the bounds of chip_smoke.k1_bound.  The table-mode cases
+(BEiT's streamed tier; with --all, and alone with --rel) run through
+chip_smoke.k1_rel_case on a tree that has table mode: the kernel
+byte-equal to the materialized-bias call, its error against the plain
+streamed version, both calls' times, the gather's, SDPA's with the
+materialized bias and the bound, as phase 2 prints them.  To compare two
+commits, unpack both and give them as parent, change, change, parent.
+The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -45,27 +51,36 @@ def smoke():
     return mod
 
 
-def kernel_device_ms(fn, iters: int):
-    """{kernel name: device ms per call of fn} from torch.profiler."""
+def kernel_device_ms(fn, iters: int, tries: int = 4):
+    """{kernel name: device ms per call of fn} from torch.profiler, from a
+    profile that saw K1's kernel launched ``iters`` times and every other
+    kernel a whole multiple of ``iters`` times (taken again, ``tries``
+    times in all, where the profiler lost a launch); None where none
+    did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = e.self_cuda_time_total
-            m = re.search(r"(flash_fwd_\w+?|split_kv_f32)\b", e.key)
-            name = m.group(1) if m else e.key[:40]
-            out[name] = round(out.get(name, 0.0) + t / 1e3 / iters, 4)
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                if t is None:
+                    t = e.self_cuda_time_total
+                m = re.search(r"(flash_fwd_\w+?|split_kv_f32)\b", e.key)
+                name = m.group(1) if m else e.key[:40]
+                out[name] = round(out.get(name, 0.0) + t / 1e3 / iters, 4)
+                counts[name] = counts.get(name, 0) + e.count
+        k1 = sum(c for name, c in counts.items() if "flash_fwd" in name)
+        if k1 == iters and all(c % iters == 0 for c in counts.values()):
+            return out
+    return None
 
 
 def f64_attention(q, k, v, bias):
@@ -104,7 +119,11 @@ def child(tree: str, mode: str) -> None:
         return
     g = torch.Generator(device="cpu").manual_seed(1)
     for name, dts, b, h, n, bb, *rest in sm.K1_CASES:
-        if mode != "all" and dts != "float32":
+        if isinstance(bb, tuple):   # table mode: ("rel", gh, gw)
+            if mode in ("all", "rel"):
+                sm.k1_rel_case(name, dts, b, h, bb[1:], g)
+            continue
+        if mode == "rel" or (mode != "all" and dts != "float32"):
             continue
         nk = rest[0] if rest else n
         dt = getattr(torch, dts)
@@ -130,23 +149,26 @@ def child(tree: str, mode: str) -> None:
             return fa.flash_attention_cuda(q, k, v, bias)
         ms = sm.cuda_ms(k1, ITERS)
         dev = kernel_device_ms(k1, ITERS)
-        sdpa = {lib_: (t if t == "refused" or t[1] is None
-                       else round(t[1], 4))
+        sdpa = {lib_: (t if t == "refused" else round(t[1], 4))
                 for lib_, t in sm.sdpa_times(q, k, v, bias).items()
                 if lib_ != "flash"}
         (bound_ms, basis), split = sm.k1_bound(b, h, n, nk, bb, dts)
-        total = sum(dev.values())
+        total = None if dev is None else sum(dev.values())
+
+        def share(bound):
+            return None if total is None else round(bound / total, 3)
         print("[k1-time] " + json.dumps({
             "tree": tree, "case": name, "max_abs_err": err, **f64,
-            "ms_per_call": round(ms, 4), "device_ms": round(total, 4),
+            "ms_per_call": round(ms, 4),
+            "device_ms": None if total is None else round(total, 4),
             "device_ms_by_kernel": dev, "sdpa_device_ms": sdpa,
             "bound_us": round(bound_ms * 1e3, 1), "bound_by": basis,
-            "device_share_of_bound": round(bound_ms / total, 3),
+            "device_share_of_bound": share(bound_ms),
             **({} if split is None else {
                 "split_tf32_bound_us": round(split[0] * 1e3, 1),
                 "split_tf32_bound_by": split[1],
-                "device_share_of_split_tf32_bound":
-                    round(split[0] / total, 3)})}), flush=True)
+                "device_share_of_split_tf32_bound": share(split[0])})}),
+            flush=True)
         del q, k, v, bias
         torch.cuda.empty_cache()
 
@@ -163,9 +185,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     args = sys.argv[1:]
-    mode = "all" if "--all" in args else \
-        "alpha" if "--alpha" in args else "f32"
-    trees = [a for a in args if a not in ("--all", "--alpha")] or [ROOT]
+    flags = ("--all", "--alpha", "--rel")
+    mode = next((f[2:] for f in flags if f in args), "f32")
+    trees = [a for a in args if a not in flags] or [ROOT]
     for tree in trees:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
                         tree, mode], check=True)
