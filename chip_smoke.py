@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # the smoke test
     python3 chip_smoke.py --profile   # and a device-time breakdown
+    python3 chip_smoke.py --profile --phase 13,19   # those phases alone
 
 Phases (each prints one line with its numbers; any failure exits non-zero
 and prints no result):
@@ -10,8 +11,9 @@ and prints no result):
      and power limit from nvidia-smi, whether PIL and cv2 import;
   1. build: nvcc builds both hand-written kernels from csrc/ and g++ the
      host polylines kernel (in parallel); ptxas's register / spill report
-     of each kernel and K1's
-     shared memory per body; per kernel of K1's SASS its HGMMA (wgmma)
+     of each kernel (a K1 kernel that spills fails) and K1's shared
+     memory and CTAs an SM per body and mode (the bf16 body must hold
+     K1_BF16_CTAS in each); per kernel of K1's SASS its HGMMA (wgmma)
      instructions: the bf16 kernel must hold some, the f32 kernel some on
      TF32 operands and at most K1_F32_MAX_FFMA FFMA (no product on the
      CUDA cores);
@@ -48,9 +50,11 @@ and prints no result):
      with the bias materialized from the same table and within the K1
      bound of the plain streamed version, which two planted faults (gh
      and gw swapped on a grid that is not square, the cls entries
-     swapped) must break; with the materialized call's time, the
-     gather's, SDPA's (efficient, cuDNN) with the materialized bias and
-     the operations bound; then ("2a") the bf16 body's
+     swapped) must break; with the materialized call's time (and table
+     mode's share of it), the bias-free body's at the same shape (the
+     floor), the gather's, SDPA's (efficient, cuDNN) with the
+     materialized bias and the operations bound; then ("2a") the bf16
+     body's
      rescale at N = 10765 (K1_ALPHA_*): its signed mean error against f64
      over all rows within K1_ALPHA_SIGMAS standard errors of 0, the old
      alpha form's (restated) outside, beside the plain version's;
@@ -194,8 +198,15 @@ Each model path (4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 19) sets
 every kernel count to 0 just before each timed run and reads it just
 after.  With
 --profile, torch.profiler over one warm funnel run per path (video mode:
-one gen_video; the 3D photo: one funnel run and 4 demo frames) gives each
-path's device time and K1's / K2's share of it (K2: both stages).  The
+one gen_video; the 3D photo: one funnel run and 4 demo frames; phase 19:
+one streamed forward at 2048^2) gives each path's device time and K1's /
+K2's share of it (K2: both stages).  Each profile must have seen every
+launch of K1 and of K2's stages that the wrappers counted over it; the
+phase of a profile that lost one is profiled again in a fresh process
+(``--phase``) at the end, where a loss fails.  ``--phase A,B``
+runs the environment, the build and those phases alone (those that
+profile and need no earlier phase: STANDALONE_PHASES) and prints no
+result lines.  The
 last lines: the card's name and power limit, a JSON line with each
 kernel's numbers (K1's launches: the sum over the model paths, each
 path's count beside it, the f32 body's on the Marigold paths, the table
@@ -207,6 +218,7 @@ phases 4, 15's pass 2 and 17, each beside it), and {"ok": true,
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import os
@@ -236,6 +248,9 @@ K1_REL_MAIN = "bf16_b1_h16_n6913_rel72x96"
 # wrong index (a swapped grid, swapped cls entries) moves the logits as
 # much as q.k does
 K1_REL_TABLE_STD = 3.0
+# K1's bf16 body, in each mode: CTAs an SM (its 64-row CTAs measured
+# fastest three to an SM; table mode's larger bias slot keeps three)
+K1_BF16_CTAS = 3
 # K1's f32 kernel in SASS: at most this many FFMA, 5 for each of the 32
 # scores a thread holds per tile.  The softmax needs two a score (the
 # scale or bias, the move to log2 space), O = O.alpha + tile one an output
@@ -302,6 +317,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # what a later phase reuses: phase 3's timed eye, phase 14's weights
 _KEEP = {}
+# --profile: the phase running, and the phases whose profiles lost a
+# launch, profiled again in a fresh process at the end of a full run
+# (None in a --phase run or a tool that imports profile_call: a lost
+# launch fails there)
+_PROFILE = {"phase": None, "again": None}
 
 
 def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
@@ -423,9 +443,26 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log("1-ptxas", lib=name, kernel=short_name(fn),
                     info=repr(line.strip()))
+                if name == "flash_attention" and "spill" in line and \
+                        " 0 bytes spill stores, 0 bytes spill loads" \
+                        not in line:
+                    raise AssertionError(f"K1's {short_name(fn)} spills: "
+                                         f"{line.strip()}")
+    lib = libs[0]
+    lib.flash_attention_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    ctas = {(dt, mode): lib.flash_attention_ctas_per_sm(dt, mode)
+            for dt in (0, 1) for mode in (0, 1)}
     log("1-smem", lib="flash_attention",
-        f32_bytes=libs[0].flash_attention_smem_bytes(0),
-        bf16_bytes=libs[0].flash_attention_smem_bytes(1))
+        f32_bytes=lib.flash_attention_smem_bytes(0, 0),
+        bf16_bytes=lib.flash_attention_smem_bytes(1, 0),
+        bf16_table_mode_bytes=lib.flash_attention_smem_bytes(1, 1),
+        ctas_per_sm={f"{'f32' if dt == 0 else 'bf16'}"
+                     f"{'_rel' if mode else ''}": n
+                     for (dt, mode), n in ctas.items()})
+    # the bf16 body holds K1_BF16_CTAS CTAs an SM in every mode
+    if min(ctas[(1, 0)], ctas[(1, 1)]) < K1_BF16_CTAS or \
+            min(ctas[(0, 0)], ctas[(0, 1)]) < 1:
+        raise AssertionError(f"K1's CTAs an SM: {ctas}")
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
                              "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", libs[0]._name],
@@ -559,7 +596,8 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
     # 1024 on a 4:3 input (phase 18c), its patches at 1024^2, its whole
     # image at R_x 1536 on a 4:3 input (phase 13) and on a square one, the
     # whole image at r_max 1600, net 2048 (phase 19, with 1024 and 1600);
-    # net 768 and 1024 in f32.  A table-mode row also holds K1 with the
+    # net 768 and 1024 in f32; a thin grid whose windows span many grid
+    # rows (3 x 200).  A table-mode row also holds K1 with the
     # materialized bias at its shape (bias batch 1), byte-equal to it:
     # the inline tier of phase 19
     ("bf16_b1_h16_n3073_rel48x64", "bfloat16", 1, 16, 3073, ("rel", 48, 64)),
@@ -573,6 +611,7 @@ K1_CASES = [  # (name, dtype, B, H, N, bias batch or None[, Nk]; Nk = N
      ("rel", 128, 128)),
     ("f32_b1_h16_n2305_rel48x48", "float32", 1, 16, 2305, ("rel", 48, 48)),
     ("f32_b1_h16_n4097_rel64x64", "float32", 1, 16, 4097, ("rel", 64, 64)),
+    ("bf16_b1_h16_n601_rel3x200", "bfloat16", 1, 16, 601, ("rel", 3, 200)),
     *[(f"f32_b{b}_h{h}_n{n}_{kind}", "float32", b, h, n, None,
        *((77,) if kind == "cross77" else ()))
       for b in (2, 4) for kind in ("self", "cross77")
@@ -633,17 +672,17 @@ def check_k1_shapes(phase: str, seen) -> None:
 
 def k1_bound(b, h, n, nk, bias_batch, dtype):
     """K1's bound: q, k, v, out and the bias's N x Nk entries moved once
-    (table mode: the (H, T) table, no bias); 4.B.H.N.Nk.D flops at the
+    (table mode: the (H, T) f32 table, no bias); 4.B.H.N.Nk.D flops at the
     dtype's peak.  For f32 also the split-TF32 bound (three TF32 passes a
     product, the work the f32 body does on the tensor cores): ((ms, basis)
     of the dtype, that or None)."""
     item = 2 if dtype == "bfloat16" else 4
-    if isinstance(bias_batch, tuple):
+    if isinstance(bias_batch, tuple):   # the f32 table
         _, gh, gw = bias_batch
-        bias_items = h * ((2 * gh - 1) * (2 * gw - 1) + 3)
+        bias_bytes = 4 * h * ((2 * gh - 1) * (2 * gw - 1) + 3)
     else:
-        bias_items = (bias_batch or 0) * h * n * nk
-    nbytes = item * (b * h * (2 * n + 2 * nk) * 64 + bias_items)
+        bias_bytes = item * (bias_batch or 0) * h * n * nk
+    nbytes = item * b * h * (2 * n + 2 * nk) * 64 + bias_bytes
     flops = 4.0 * b * h * n * nk * 64
     split = bound(nbytes, 3 * flops, "tf32") if dtype == "float32" else None
     return bound(nbytes, flops, dtype), split
@@ -832,7 +871,11 @@ def k1_rel_case(name, dts, b, h, grid, g):
     q = mk(b, h, n, 64, scale=K1_Q_SCALE)
     k, v = mk(b, h, n, 64), mk(b, h, n, 64, scale=K1_V_SCALE)
     table = mk(t_len, h, scale=K1_REL_TABLE_STD)
-    table_ht = table.t().contiguous()
+    # the (H, T) table in the layout the tree's table mode reads (rows
+    # padded to 16 bytes; a tree without pad_table_rows takes them
+    # contiguous)
+    pad = getattr(fa, "pad_table_rows", None)
+    table_ht = pad(table) if pad else table.t().contiguous()
 
     def rel_call():
         return fa.flash_attention_rel(q, k, v, table_ht, grid)
@@ -862,6 +905,8 @@ def k1_rel_case(name, dts, b, h, grid, g):
     dev_ms = device_ms(rel_call, 5)
     mat_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 10)
     mat_dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, bias), 5)
+    # the floor: the same body without a bias
+    none_dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
     plain_ms = cuda_ms(plain, 1)
     gather_ms = cuda_ms(lambda: rel_pos_bias(table, grid, grid), 3)
     library = sdpa_times(q, k, v, bias)
@@ -885,6 +930,8 @@ def k1_rel_case(name, dts, b, h, grid, g):
         ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
         materialized_ms=f"{mat_ms:.4f}",
         materialized_device_ms=f"{mat_dev_ms:.4f}",
+        device_share_of_materialized=f"{dev_ms / mat_dev_ms:.3f}",
+        bias_free_device_ms=f"{none_dev_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", gather_ms=f"{gather_ms:.4f}", **lib_kw,
         bound_us=f"{bound_ms * 1e3:.1f}", bound_by=basis,
         device_share_of_bound=f"{bound_ms / dev_ms:.3f}",
@@ -904,7 +951,7 @@ def k1_rel_case(name, dts, b, h, grid, g):
     row = dict(case=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                library_ms=None if eff == "refused" else eff[0],
                materialized_ms=mat_ms, materialized_device_ms=mat_dev_ms,
-               gather_ms=gather_ms, bound_ms=bound_ms, bound_by=basis,
+               bias_free_device_ms=none_dev_ms, gather_ms=gather_ms, bound_ms=bound_ms, bound_by=basis,
                max_abs_err=err)
     del q, k, v, table, table_ht, bias, got
     torch.cuda.empty_cache()
@@ -1116,20 +1163,49 @@ def profile_paths(cache, inp, paths, ops=None):
             None, imgs, None, None, inp, ops, predictor_cache=cache)))
 
 
+def _launch_counts() -> dict:
+    """K1's launches (the sum over its modes) and K2's two stages', as the
+    wrappers count them."""
+    from depthmap_tpu_torch.ops import flash_attention as fa
+    from depthmap_tpu_torch.ops import polylines as pl
+    return {"k1": sum(fa.flash_attention_cuda.launches_by_mode.values()),
+            "k2_sort": pl._sort_cuda.launches,
+            "k2_sweep": pl._sweep_cuda.launches}
+
+
+def _profiled_kernel(key: str):
+    """The ``_launch_counts`` key of a profiler's kernel name, or None."""
+    if K1_KERNEL in key:
+        return "k1"
+    if "polylines_sort" in key:
+        return "k2_sort"
+    if "polylines_sweep" in key:
+        return "k2_sweep"
+    return None
+
+
 def profile_call(label, fn):
     """torch.profiler over one call of ``fn``: its wall ms, device ms by
-    kernel, the busy share, and K1's and K2's share of the device time."""
+    kernel, the busy share, and K1's and K2's share of the device time.
+    The launches of K1 and of K2's two stages the profile saw must equal
+    the wrappers' counts over the call.  Where the profile lost one, a
+    full ``--profile`` run profiles the phase again in a fresh process at
+    its end (``--phase``), and anywhere else it fails; no sum of such a
+    profile is printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {}
+    after = _launch_counts()
+    ran = {key: after[key] - before[key] for key in after}
+    dev, seen = {}, dict.fromkeys(ran, 0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or _annotation(e):
             continue
@@ -1137,6 +1213,16 @@ def profile_call(label, fn):
         if t is None:
             t = e.self_cuda_time_total
         dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+        kernel = _profiled_kernel(e.key)
+        if kernel:
+            seen[kernel] += e.count
+    if seen != ran:
+        log("profile-lost-launches", path=label, seen=seen, launched=ran)
+        if _PROFILE["again"] is None:
+            raise AssertionError(f"profile of {label}: the profiler saw "
+                                 f"{seen} of the launches {ran}")
+        _PROFILE["again"].add(_PROFILE["phase"])
+        return
     total = sum(dev.values())
     if total <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -1147,6 +1233,7 @@ def profile_call(label, fn):
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     log("profile", path=label, wall_ms=f"{wall_ms:.2f}",
         device_ms=f"{total:.2f}", busy=f"{total / wall_ms:.3f}",
+        launches_checked=ran,
         k1_ms=f"{k1:.2f}", k1_share=f"{k1 / total:.3f}",
         k2_ms=f"{k2:.2f}", k2_share=f"{k2 / total:.3f}",
         k2_sort_ms=f"{k2_sort:.2f}", k2_sweep_ms=f"{k2_sweep:.2f}",
@@ -3179,9 +3266,11 @@ STREAM_NET_SIZES = (1024, 1600, 2048)
 INLINE_BUDGET = 1 << 40
 
 
-def streamed_tiers(pred, img, size: int, build_s: float):
+def streamed_tiers(pred, img, size: int, build_s: float,
+                   profile: bool = False):
     """Phase 19 at one net size: a warm and a timed forward in each tier,
-    checked as ``phase_streamed`` says; the timed runs' K1 launches and
+    checked as ``phase_streamed`` says (with ``profile``, a profile of the
+    streamed forward at the largest size); the timed runs' K1 launches and
     those in table mode."""
     import torch
     from depthmap_tpu_torch.ops import flash_attention as fa
@@ -3210,6 +3299,9 @@ def streamed_tiers(pred, img, size: int, build_s: float):
             peak_over_weights_GiB=f"{peak / 2**30:.3f}",
             one_block_bias_GiB=f"{bias_bytes / 2**30:.3f}",
             build_s=f"{build_s:.1f}")
+        if profile and tier == "streamed" and size == max(STREAM_NET_SIZES):
+            profile_call(f"19_streamed_{size}x{size}",
+                         lambda: pred._forward(img, size, size))
     (ds, ps, ms_, ls), (di, pi, mi, li) = runs["streamed"], runs["inline"]
     equal = bool(torch.equal(ds, di))
     log("19-streamed", net=f"{size}x{size}", maps_equal=equal,
@@ -3228,7 +3320,7 @@ def streamed_tiers(pred, img, size: int, build_s: float):
     return ls + li, ms_["rel"] + mi["rel"]
 
 
-def phase_streamed():
+def phase_streamed(profile: bool = False):
     """Phase 19: dpt_beit_large_512 (bf16, random weights from seed 0)
     through the predictor on one textured 1024^2 image at net 1024^2,
     1600^2 and 2048^2 (N = 4097, 10001, 16385), in the streamed tier (the
@@ -3255,7 +3347,8 @@ def phase_streamed():
     with k1_shapes() as shapes:
         try:
             for size in STREAM_NET_SIZES:
-                k1, k1_rel = streamed_tiers(pred, img, size, build_s)
+                k1, k1_rel = streamed_tiers(pred, img, size, build_s,
+                                            profile)
                 launches, rel = launches + k1, rel + k1_rel
         finally:
             os.environ.pop("DEPTHMAP_BIAS_STREAM_BYTES", None)
@@ -3265,11 +3358,58 @@ def phase_streamed():
     return launches, rel
 
 
+# the phases --phase runs alone (those that profile their paths and need
+# no earlier phase)
+STANDALONE_PHASES = {
+    "4": phase_main_path, "6": phase_default_options, "7": phase_long_n,
+    "9": phase_dpt_large, "10": phase_zoo, "12": phase_metric_zoo,
+    "13": phase_boost, "14": phase_marigold, "15": phase_video,
+    "16": phase_3dphoto, "17": phase_rest, "19": phase_streamed}
+
+
+def run_phases(phases, profile: bool) -> int:
+    """``--phase A,B``: the environment, the build, then those phases alone
+    (with ``--profile``, whose profiles must see every launch), and no
+    result lines."""
+    phase_environment()
+    phase_build()
+    for phase in phases:
+        t0 = time.perf_counter()
+        _PROFILE["phase"] = phase
+        STANDALONE_PHASES[phase](profile)
+        log("phase-alone", name=phase,
+            seconds=round(time.perf_counter() - t0, 1))
+    return 0
+
+
+def profile_again():
+    """Profile in a fresh process each phase whose profiles lost a launch
+    here; fails where that process fails."""
+    import torch
+    for phase in sorted(_PROFILE["again"], key=int):
+        log("profile-again", name=phase, reason="a profile lost a launch")
+        torch.cuda.empty_cache()
+        sys.stdout.flush()
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--profile", "--phase", phase], check=True,
+                       timeout=3600)
+
+
 def main() -> int:
-    profile = "--profile" in sys.argv[1:]
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    if "--phase" in args:
+        phases = args[args.index("--phase") + 1].split(",")
+        unknown = [p for p in phases if p not in STANDALONE_PHASES]
+        if unknown:
+            known = sorted(STANDALONE_PHASES, key=int)
+            raise SystemExit(f"--phase takes {known}, not {unknown}")
+        return run_phases(phases, profile)
+    _PROFILE["again"] = set()
     seconds = {}
 
     def timed(label, fn, *args):
+        _PROFILE["phase"] = label
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[label] = round(time.perf_counter() - t0, 1)
@@ -3313,7 +3453,8 @@ def main() -> int:
     k1_rel_by_path.update(k1_rel_parallel)
     (k1_by_path["streamed_bias_beit_large_512"],
      k1_rel_by_path["streamed_bias_beit_large_512"]) = timed(
-        "19", phase_streamed)
+        "19", phase_streamed, profile)
+    profile_again()
     k1_f32_by_path.update(train_step_beit_large_512=k1_parallel[
         "train_step_beit_large_512"], graft_entry=k1_parallel["graft_entry"])
     log("phases", seconds=seconds)

@@ -20,28 +20,49 @@
 // instance).  Replaces the streamed tier of the JAX package
 // (depthmap_tpu/models/attention.py attention_rel_streamed: a (chunk, N)
 // bias tile gathered per 512-query chunk, then the Pallas call on it).
-// Here no bias is materialized at all: the kernel reads each bias value
-// straight from the block's (H, T) table, T = (2gh-1)(2gw-1)+3, through
-// the read-only path, at the index timm's gen_relative_position_index
-// gives the pair (token 0 is cls; tokens t >= 1 sit at row (t-1) / gw,
-// column (t-1) % gw of the gh x gw grid):
+// Here no bias is materialized: the kernel reads each bias value from the
+// block's (H, T) table, T = (2gh-1)(2gw-1)+3, held in f32 (a bf16 value
+// widens exactly) in rows padded to 16 bytes, at the index timm's
+// gen_relative_position_index gives the pair (token 0 is cls; tokens t >=
+// 1 sit at row (t-1) / gw, column (t-1) % gw of the gh x gw grid):
 //    idx = (r1 - r2 + gh - 1)(2gw - 1) + (c1 - c2 + gw - 1)
 //        = base(t1) - off(t2),  base = (r1 + gh - 1)(2gw-1) + c1 + gw - 1,
-//                               off = r2 (2gw-1) + c2,
-// and num_rel / num_rel + 1 / num_rel + 2 for cls -> token / token -> cls /
-// cls -> cls.  Each thread works out base() of its two query rows once and
-// off() of its 16 key columns once a tile; rows >= N and columns >= Nk
-// take the index of token N - 1, so no load leaves the table (their
-// scores are dropped or masked as in the other modes).  The table value
-// is in the input dtype and enters the same fmaf(x, scale, b) as a
-// materialized bias's: the answer is the materialized-bias call's, bit
-// for bit.  The stage drops its bias TMA box, so the call moves q, k, v
-// and out only: its bound is the operations, 4.B.H.N^2.D, with no bias
-// bytes (at (1, 16, 16385) 1.11 ms of bf16 tensor time against 2.57 ms
-// of bias bytes alone for the materialized call).  The table (2 MB for
-// 16 heads at a 128 x 128 grid) stays in L2, and a 64 x 64 tile touches
-// a few (2gw-1)-wide strips of it, which L1 holds.  Staging each tile's
-// strips in shared memory is not done yet.
+//                               off = r2 (2gw - 1) + c2,
+// and num_rel / num_rel + 1 / num_rel + 2 for cls -> token / token -> cls
+// / cls -> cls.
+//  * The window.  base() and off() rise with the token, so every non-cls
+//    index of a query tile against a kv tile lies in one range of the
+//    head's row, [base(qf) - off(kl), base(ql) - off(kf)] (first / last
+//    tokens of each tile, tokens past N taken as N - 1, cls as token 1).
+//    Each stage's bias slot, which this mode fills with no bias tile (16
+//    KB in the bf16 instance, 32 KB in the f32 one), holds that range
+//    widened to 16-byte bounds (one cp.async.bulk on the stage's
+//    mbarrier, a tile ahead as K and V), the kv tile's 64 off() values
+//    (a bulk copy from the per-grid int32 table the wrapper builds once,
+//    as byte offsets, 4 off()) and, from each stage's first fill on, the
+//    16-byte span of the row that holds the three cls entries.  The
+//    range is at most rel_tile_span(rows, gw) + rel_tile_span(BK, gw) + 1
+//    entries, plus the widening; the launch refuses a grid whose bound
+//    does not fit the slot (gw <= 1946 in bf16, 3962 in f32; the UI's
+//    largest net, 2048, gives gw = 128).
+//  * The index.  Each thread works out base() of its two query rows and
+//    of the CTA's first query once; a score's entry is window[(base - lo)
+//    - off], lo from the staged off() of the tile's last key: per score
+//    one integer subtraction of the staged byte offset from the row's
+//    address, and one shared-memory load; no division.  Only query tile 0
+//    and kv tile 0 hold a cls row or column; that branch is uniform per
+//    tile, and only those tiles run the selects.
+//  * Under the tensor cores.  The 32 loads of a thread complete while the
+//    tensor cores compute S (bf16: issued just before S's wgmma; f32:
+//    between its commit and its wait, where the f32 body's registers
+//    allow it), and the window of the tile two ahead is worked out by the
+//    thread that refills the stage (f32: while S runs).
+// The table value is the input dtype's and enters the same fmaf(x, scale,
+// b) as a materialized bias's: the answer is the materialized-bias call's,
+// bit for bit.  The call moves q, k, v, out and the table once: its bound
+// is the operations, 4.B.H.N^2.D (at (1, 16, 16385) 1.11 ms of bf16
+// tensor time against 2.57 ms of bias bytes alone for the materialized
+// call).
 //
 // Two bodies, chosen by dtype, both on the tensor cores; neither falls
 // back to the other.
@@ -131,6 +152,11 @@ constexpr uint32_t OFF_V = OFF_K + STAGES * TILE_BYTES;
 constexpr uint32_t OFF_B = OFF_V + STAGES * TILE_BYTES;
 constexpr uint32_t OFF_BAR = OFF_B + STAGES * TILE_BYTES;
 constexpr size_t kTcSmemBytes = 1024 + OFF_BAR + 8 * (1 + STAGES);
+// table mode: a bias slot of twice a tile (its window holds f32 values),
+// the mbarriers after it; three CTAs still fit an SM
+constexpr uint32_t REL_SLOT = 2 * TILE_BYTES;
+constexpr uint32_t OFF_BAR_REL = OFF_B + STAGES * REL_SLOT;
+constexpr size_t kTcRelSmemBytes = 1024 + OFF_BAR_REL + 8 * (1 + STAGES);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -256,72 +282,165 @@ __device__ __forceinline__ int div_gw(int p, int gw, float inv_gw) {
     return r + (m >= gw) - (m < 0);
 }
 
-// base() of query token t (see the head of the file), -1 for cls
+// base() of query token t >= 1 (see the head of the file)
 __device__ __forceinline__ int rel_base(int t, int gh, int gw,
                                         float inv_gw) {
-    if (t == 0) return -1;
     const int p = t - 1, r = div_gw(p, gw, inv_gw);
     return (r + gh - 1) * (2 * gw - 1) + (p - r * gw) + gw - 1;
 }
 
-// off() of key token t, -1 for cls
+// off() of key token t >= 1
 __device__ __forceinline__ int rel_off(int t, int gw, float inv_gw) {
-    if (t == 0) return -1;
     const int p = t - 1;
     return p + div_gw(p, gw, inv_gw) * (gw - 1);
 }
 
-__device__ __forceinline__ int rel_idx(int base, int off, int num_rel) {
-    return base < 0 ? (off < 0 ? num_rel + 2 : num_rel)
-                    : (off < 0 ? num_rel + 1 : base - off);
+// A stage's bias slot in table mode: the cls entries (the 16-byte-aligned
+// span of the head's row that holds num_rel .. num_rel + 2, loaded with
+// each stage's first fill and kept), the kv tile's BK off() values (int32
+// byte offsets, 4 off(), from the wrapper's per-grid table), then the
+// tile's window of the row.
+// The table is f32 in both bodies (bf16 values widen exactly), so a
+// window entry is the f32 that enters the fmaf.
+constexpr uint32_t REL_CLS = 0;
+constexpr uint32_t REL_OFFS = 32;
+constexpr uint32_t REL_WIN = REL_OFFS + 4 * BK;
+constexpr int REL_E = 4;  // table entries per 16 bytes
+
+// What table mode reads besides q, k, v: the (H, T) f32 table in rows of
+// ld elements (a multiple of 4), the per-grid off() table, the grid.
+struct RelArgs {
+    const float* table;
+    const int* offs;
+    int T_len, ld, gh, gw;
+};
+
+// The window of the head's row that query rows [q0, q0 + rows) need
+// against keys [k0, k0 + BK): base() and off() rise with the token, so
+// every index but the cls ones lies in [base(qf) - off(kl), base(ql) -
+// off(kf)] (first / last tokens of each range, past N clamped to N - 1,
+// cls taking token 1's); widened to 16-byte bounds.  lo: its first entry;
+// bytes: its size.
+struct RelWindow {
+    int lo;
+    uint32_t bytes;
+};
+
+__device__ __forceinline__ RelWindow rel_window(int q0, int rows, int k0,
+                                                int N, int gh, int gw) {
+    constexpr int E = REL_E;
+    const float inv_gw = 1.f / gw;
+    const int lo = rel_base(max(q0, 1), gh, gw, inv_gw) -
+                   rel_off(min(k0 + BK - 1, N - 1), gw, inv_gw);
+    const int hi = rel_base(min(q0 + rows - 1, N - 1), gh, gw, inv_gw) -
+                   rel_off(max(k0, 1), gw, inv_gw);
+    const int lo_a = lo & ~(E - 1);
+    return {lo_a, (uint32_t)(((hi + E) & ~(E - 1)) - lo_a) * 16 / E};
 }
 
-// a table entry through the read-only path, as f32 (bf16 widens exactly)
-__device__ __forceinline__ float table_at(const __nv_bfloat16* t, int i) {
-    return __uint_as_float(
-        (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(t) + i)
-        << 16);
-}
-__device__ __forceinline__ float table_at(const float* t, int i) {
-    return __ldg(t + i);
+// cp.async.bulk global -> shared (16-byte aligned, a multiple of 16 bytes),
+// counted on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(bar)
+        : "memory");
 }
 
-// What each thread keeps of the table: its head's row, and base() of its
-// two query rows (rows past N take token N - 1's).
-template <typename T>
-struct RelRows {
-    const T* tab;
-    int num_rel, gw;
-    float inv_gw;
-    int base[2];
+// The producer's part of a table-mode fill of the slot at `slot` for kv
+// tile k0 of head h, whose window is w: the bytes it adds to the stage's
+// transaction count, and its bulk copies, issued after the expect_tx.
+// `cls`: the stage's first fill, which also copies the cls entries.  The
+// window fits the slot: the launch refuses a grid whose bound
+// (rel_window_fits) does not.
+struct RelFill {
+    const float* row;
+    const int* offs;
+    RelWindow w;
+    int c0;
+    uint32_t cls_bytes;
 
-    __device__ __forceinline__ RelRows(const T* table, int T_len, int h,
-                                       int gh, int gw_, int row, int N)
-        : tab(table + (size_t)h * T_len), num_rel(T_len - 3), gw(gw_),
-          inv_gw(1.f / gw_) {
-        base[0] = rel_base(min(row, N - 1), gh, gw, inv_gw);
-        base[1] = rel_base(min(row + 8, N - 1), gh, gw, inv_gw);
+    __device__ __forceinline__ RelFill(const RelArgs& a, int h, int k0,
+                                       RelWindow w_)
+        : w(w_) {
+        constexpr int E = REL_E;
+        row = a.table + (size_t)h * a.ld;
+        offs = a.offs + k0;
+        const int num_rel = a.T_len - 3;
+        c0 = num_rel & ~(E - 1);
+        cls_bytes = (uint32_t)(((num_rel + 2 + E) & ~(E - 1)) - c0) * 16 / E;
     }
-
-    // x = x.scale + bias for the accumulator's 32 scores of kv tile k0:
-    // sc[4 jj + 2 hh + e] is (row + 8 hh, k0 + 8 jj + cq + e)
-    __device__ __forceinline__ void add(float (&sc)[32], int k0, int cq,
-                                        int NK, float scale) const {
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int off = rel_off(min(k0 + 8 * jj + cq + e, NK - 1),
-                                        gw, inv_gw);
-#pragma unroll
-                for (int hh = 0; hh < 2; ++hh) {
-                    float* x = sc + 4 * jj + 2 * hh + e;
-                    *x = fmaf(*x, scale,
-                              table_at(tab, rel_idx(base[hh], off, num_rel)));
-                }
-            }
+    __device__ __forceinline__ uint32_t bytes(bool cls) const {
+        return 4 * BK + w.bytes + (cls ? cls_bytes : 0);
+    }
+    __device__ __forceinline__ void issue(uint32_t slot, uint32_t bar,
+                                          bool cls) const {
+        bulk_load(slot + REL_OFFS, offs, 4 * BK, bar);
+        bulk_load(slot + REL_WIN, row + w.lo, w.bytes, bar);
+        if (cls) bulk_load(slot + REL_CLS, row + c0, cls_bytes, bar);
     }
 };
+
+// What a consumer thread keeps of table mode: base() of its two query
+// rows (past N: token N - 1's; cls: token 1's) and of the CTA's first
+// query token (the window's query term), and whether its first row is
+// the cls token.
+struct RelRows {
+    int base[2], first;
+    bool cls_row;
+
+    __device__ __forceinline__ RelRows(int q0, int row, int N, int gh,
+                                       int gw) {
+        const float inv_gw = 1.f / gw;
+        base[0] = rel_base(max(min(row, N - 1), 1), gh, gw, inv_gw);
+        base[1] = rel_base(min(row + 8, N - 1), gh, gw, inv_gw);
+        first = rel_base(max(q0, 1), gh, gw, inv_gw);
+        cls_row = row == 0;
+    }
+};
+
+// The 32 bias values of a thread's scores on kv tile j, from the slot:
+// b[4 jj + 2 hh + e] for the accumulator's score (row + 8 hh, k0 + 8 jj +
+// cq + e).  A score's entry is window[(base - lo) - off]; only query tile
+// 0 and kv tile 0 hold a cls row or column, so only they take the
+// selects.
+__device__ __forceinline__ void rel_fetch(float (&b)[32], const RelRows& rr,
+                                          const uint8_t* slot, int cq,
+                                          int T_len, bool cls_tile,
+                                          bool cls_col) {
+    const int* offs = reinterpret_cast<const int*>(slot + REL_OFFS);
+    const int lo = (rr.first - (offs[BK - 1] >> 2)) & ~(REL_E - 1);
+    // each row's entry at off() = 0, in bytes: a score's is 4 off() below
+    const uint8_t* w[2] = {slot + REL_WIN + 4 * (rr.base[0] - lo),
+                           slot + REL_WIN + 4 * (rr.base[1] - lo)};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+        const int2 o = *reinterpret_cast<const int2*>(offs + 8 * jj + cq);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            b[4 * jj + 2 * hh] =
+                *reinterpret_cast<const float*>(w[hh] - o.x);
+            b[4 * jj + 2 * hh + 1] =
+                *reinterpret_cast<const float*>(w[hh] - o.y);
+        }
+    }
+    if (cls_tile) {
+        const int num_rel = T_len - 3;
+        const float* cls = reinterpret_cast<const float*>(slot + REL_CLS) +
+                           (num_rel & (REL_E - 1));
+        if (rr.cls_row) {  // cls -> token
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) b[4 * jj] = b[4 * jj + 1] = cls[0];
+        }
+        if (cls_col) {     // token -> cls, cls -> cls
+            b[0] = cls[rr.cls_row ? 2 : 1];
+            b[2] = cls[1];
+        }
+    }
+}
 
 // REL: table mode (has_bias is then 0: no bias tile is loaded)
 template <bool REL>
@@ -332,13 +451,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tb,
                __nv_bfloat16* __restrict__ out, int H, int N, int NK,
                int has_bias, int bias_batch, float scale,
-               const __nv_bfloat16* __restrict__ table, int T, int gh,
-               int gw) {
+               const RelArgs rel) {
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
     const uint8_t* gbase = smem_raw + (base - raw);
-    const uint32_t bar_q = base + OFF_BAR;
+    const uint32_t bar_q = base + (REL ? OFF_BAR_REL : OFF_BAR);
 
     const int b = blockIdx.x, h = blockIdx.z;
     const int q0 = blockIdx.y * BQ;
@@ -351,6 +469,17 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 
     auto issue = [&](int j, int s) {
         const uint32_t bar = bar_q + 8 * (1 + s);
+        if (REL) {  // K, V, and the tile's window into the bias slot
+            const RelFill f(rel, h, j * BK,
+                            rel_window(q0, BQ, j * BK, N, rel.gh, rel.gw));
+            mbar_expect_tx(bar, stage_bytes + f.bytes(j < STAGES));
+            tma_load_3d(base + OFF_K + s * TILE_BYTES, &tk, bar, 0, j * BK,
+                        bh);
+            tma_load_3d(base + OFF_V + s * TILE_BYTES, &tv, bar, 0, j * BK,
+                        bh);
+            f.issue(base + OFF_B + s * REL_SLOT, bar, j < STAGES);
+            return;
+        }
         mbar_expect_tx(bar, stage_bytes);
         tma_load_3d(base + OFF_K + s * TILE_BYTES, &tk, bar, 0, j * BK, bh);
         tma_load_3d(base + OFF_V + s * TILE_BYTES, &tv, bar, 0, j * BK, bh);
@@ -376,9 +505,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const int cq = 2 * (lane & 3);
     const int swz = lane >> 2;  // (row & 7) for both rows
     // (a placeholder on a 1 x 1 grid in the other modes, never read)
-    const RelRows<__nv_bfloat16> rel = REL
-        ? RelRows<__nv_bfloat16>(table, T, h, gh, gw, q0 + r_lo, N)
-        : RelRows<__nv_bfloat16>(table, 3, 0, 1, 1, 0, 1);
+    const RelRows rr = REL ? RelRows(q0, q0 + r_lo, N, rel.gh, rel.gw)
+                           : RelRows(0, 0, 1, 1, 1);
 
     float o[32];
 #pragma unroll
@@ -396,6 +524,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int i = 0; i < 32; ++i) sc[i] = 0.f;
         const uint64_t dk = sw128_desc(base + OFF_K + s * TILE_BYTES);
+        // table mode: the tile's bias values from the slot; the loads
+        // complete while the tensor cores compute S.  (Issued after S's
+        // commit, ptxas spread them between its four wgmma, which then
+        // started later: 0.5-2% slower.)
+        float rb[32];
+        if (REL)
+            rel_fetch(rb, rr, gbase + OFF_B + s * REL_SLOT, cq, rel.T_len,
+                      q0 == 0 || j == 0, j == 0 && cq == 0);
         wg_fence();
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)  // 16 of D per step: +32 bytes
@@ -407,7 +543,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         // scores s.scale + bias
         const int k0 = j * BK;
         if (REL) {
-            rel.add(sc, k0, cq, NK, scale);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] = fmaf(sc[i], scale, rb[i]);
         } else if (has_bias) {
             const uint8_t* bt = gbase + OFF_B + s * TILE_BYTES;
 #pragma unroll
@@ -656,7 +793,7 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tb,
               const float* __restrict__ q, float* __restrict__ out, int H,
               int N, int NK, int has_bias, int bias_batch, float scale,
-              const float* __restrict__ table, int T, int gh, int gw) {
+              const RelArgs rel) {
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -675,9 +812,31 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
     const uint32_t stage_bytes =
         4 * F_TILE + (has_bias ? 2 * F_BIAS_BOX : 0);
 
+    // table mode: the window of the tile this warp would refill next,
+    // worked out by its lane 0 while the tensor cores compute a tile's S
+    RelWindow next = {0, 0};
     auto issue = [&](int j, int s) {
         const uint32_t bar = bar0 + 8 * s;
         const uint32_t st = base + s * F_STAGE;
+        if (REL) {  // K, V, and the tile's window into the bias slot
+            const RelFill f(rel, h, j * BK,
+                            j < F_STAGES ? rel_window(q0, F_BQ, j * BK, N,
+                                                      rel.gh, rel.gw)
+                                         : next);
+            mbar_expect_tx(bar, stage_bytes + f.bytes(j < F_STAGES));
+            for (int x = 0; x < 2; ++x) {
+                tma_load_3d(st + F_OFF_KH + x * F_BOX, &tk, bar, 32 * x,
+                            j * BK, bh);
+                tma_load_3d(st + F_OFF_KL + x * F_BOX, &tk, bar, 32 * x,
+                            j * BK, n_bh + bh);
+                tma_load_3d(st + F_OFF_VH + x * F_BOX, &tv, bar,
+                            j * BK + 32 * x, 0, bh);
+                tma_load_3d(st + F_OFF_VL + x * F_BOX, &tv, bar,
+                            j * BK + 32 * x, 0, n_bh + bh);
+            }
+            f.issue(st + F_OFF_B, bar, j < F_STAGES);
+            return;
+        }
         mbar_expect_tx(bar, stage_bytes);
         for (int x = 0; x < 2; ++x) {  // the two 32-column boxes
             tma_load_3d(st + F_OFF_KH + x * F_BOX, &tk, bar, 32 * x, j * BK,
@@ -712,9 +871,8 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
     const int cq = 2 * t;
     const int row0 = q0 + wg * 64 + r_lo;
     // (a placeholder on a 1 x 1 grid in the other modes, never read)
-    const RelRows<float> rel = REL
-        ? RelRows<float>(table, T, h, gh, gw, row0, N)
-        : RelRows<float>(table, 3, 0, 1, 1, 0, 1);
+    const RelRows rr = REL ? RelRows(q0, row0, N, rel.gh, rel.gw)
+                           : RelRows(0, 0, 1, 1, 1);
 
     // Q as split A fragments of m64n64k8: a0 (r_lo, t), a1 (r_lo + 8, t),
     // a2 (r_lo, t + 4), a3 (r_lo + 8, t + 4) of each 8 columns
@@ -757,13 +915,24 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
         for (int ks = 0; ks < 8; ++ks)
             wgmma_tf32(sc, qh[ks], f32_desc(st + F_OFF_KH, ks), 1);
         wg_commit();
+        // table mode: the tile's bias values from the slot while the
+        // tensor cores compute S
+        float rb[32];
+        if (REL) {
+            rel_fetch(rb, rr, gbase + s * F_STAGE + F_OFF_B, cq, rel.T_len,
+                      q0 == 0 || j == 0, j == 0 && cq == 0);
+            if (lane == 0 && j + F_STAGES < n_tiles)
+                next = rel_window(q0, F_BQ, (j + F_STAGES) * BK, N, rel.gh,
+                                  rel.gw);
+        }
         wg_wait0();
         reg_fence(sc);
 
         // scores s.scale + bias
         const int k0 = j * BK;
         if (REL) {
-            rel.add(sc, k0, cq, NK, scale);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] = fmaf(sc[i], scale, rb[i]);
         } else if (has_bias) {
             const uint8_t* bt = gbase + s * F_STAGE + F_OFF_B;
 #pragma unroll
@@ -967,11 +1136,12 @@ bool f32_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
                         box_rows);
 }
 
-// The relative-position table of table mode: (H, T) in the input dtype,
-// null in the other modes.
+// The relative-position table of table mode: (H, T) f32 in rows of ld
+// elements, null in the other modes; offs the per-grid off() table.
 struct RelTable {
     const void* ptr;
-    int T, gh, gw;
+    const int* offs;
+    int T, ld, gh, gw;
 };
 
 int launch_bf16(const void* q, const void* k, const void* v,
@@ -990,19 +1160,39 @@ int launch_bf16(const void* q, const void* k, const void* v,
                       (uint64_t)N * ldb, BQ);
     if (!ok) return ERR_ENCODE;
     auto kernel = rel.ptr ? flash_fwd_bf16<true> : flash_fwd_bf16<false>;
+    const size_t smem = rel.ptr ? kTcRelSmemBytes : kTcSmemBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kTcSmemBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B, (N + BQ - 1) / BQ, H);  // batch fastest
-    kernel<<<grid, TC_THREADS, kTcSmemBytes, stream>>>(
+    kernel<<<grid, TC_THREADS, smem, stream>>>(
         tq, tk, tv, tb, (__nv_bfloat16*)out, H, N, NK, bias != nullptr,
-        bias_batch, scale, (const __nv_bfloat16*)rel.ptr, rel.T, rel.gh,
-        rel.gw);
+        bias_batch, scale,
+        RelArgs{(const float*)rel.ptr, rel.offs, rel.T, rel.ld, rel.gh,
+                rel.gw});
     return (int)cudaGetLastError();
 }
 
 int padded_keys(int NK) { return (NK + BK - 1) / BK * BK; }
+
+// The largest base() (or off()) spread over `rows` consecutive tokens of a
+// grid gw wide: rows - 1 steps, and at most (gw + rows - 2) / gw row
+// changes of gw - 1 more each.
+long long rel_tile_span(int rows, int gw) {
+    return rows - 1 + (long long)((gw + rows - 2) / gw) * (gw - 1);
+}
+
+// Whether every table-mode window of a grid gw wide (any gh) fits the
+// body's bias slot: the query tile's spread, the kv tile's, one, and the
+// widening to 16-byte bounds at both ends (ops/flash_attention.py
+// rel_window_bound restates it).
+bool rel_window_fits(int gw, int dtype) {
+    const int rows = dtype == 0 ? F_BQ : BQ;
+    const long long entries = rel_tile_span(rows, gw) +
+                              rel_tile_span(BK, gw) + 1 + 2 * (REL_E - 1);
+    const uint32_t slot = dtype == 0 ? 2 * F_BIAS_BOX : REL_SLOT;
+    return entries * (16 / REL_E) <= (long long)(slot - REL_WIN);
+}
 
 // ws: flash_attention_workspace_bytes(B, H, NK, 0) bytes, 16-byte aligned
 int launch_f32(const void* q, const void* k, const void* v, const void* bias,
@@ -1037,8 +1227,21 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias,
     dim3 grid((N + F_BQ - 1) / F_BQ, B, H);
     kernel<<<grid, F_THREADS, kF32SmemBytes, stream>>>(
         tk, tv, tb, (const float*)q, (float*)out, H, N, NK, bias != nullptr,
-        bias_batch, scale, (const float*)rel.ptr, rel.T, rel.gh, rel.gw);
+        bias_batch, scale,
+        RelArgs{(const float*)rel.ptr, rel.offs, rel.T, rel.ld, rel.gh,
+                rel.gw});
     return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel, int threads, size_t smem) {
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                            threads, smem);
+    return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
@@ -1052,35 +1255,57 @@ size_t flash_attention_workspace_bytes(int B, int H, int NK, int dtype) {
                       : 0;
 }
 
-// The dynamic shared memory of the body for dtype, in bytes.
-size_t flash_attention_smem_bytes(int dtype) {
-    return dtype == 0 ? kF32SmemBytes : kTcSmemBytes;
+// The dynamic shared memory of the body for dtype (table_mode: its REL
+// instance), in bytes.
+size_t flash_attention_smem_bytes(int dtype, int table_mode) {
+    return dtype == 0 ? kF32SmemBytes
+                      : table_mode ? kTcRelSmemBytes : kTcSmemBytes;
+}
+
+// How many CTAs of the body for dtype (table_mode: its REL instance) an
+// SM holds at once, or a negative cudaError_t.
+int flash_attention_ctas_per_sm(int dtype, int table_mode) {
+    const size_t smem = flash_attention_smem_bytes(dtype, table_mode);
+    if (dtype == 0)
+        return ctas_per_sm(
+            table_mode ? flash_fwd_f32<true> : flash_fwd_f32<false>,
+            F_THREADS, smem);
+    return ctas_per_sm(
+        table_mode ? flash_fwd_bf16<true> : flash_fwd_bf16<false>,
+        TC_THREADS, smem);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null; bias_batch is its
 // leading dim (1 = shared across the batch, B = per batch element) and
 // bias_ld its row stride in elements (a multiple of 16, >= NK).  table
 // (table mode; null otherwise, and then bias must be null): the (H,
-// table_len) relative-position table in the input dtype, shared across
-// the batch, of a gh x gw grid: table_len = (2gh-1)(2gw-1)+3 and N = NK =
-// gh.gw + 1.  workspace: flash_attention_workspace_bytes(B, H, NK, dtype)
+// table_len) relative-position table, f32 (in bf16 the bf16 values
+// widened), shared across the batch, of a gh x gw grid (table_len =
+// (2gh-1)(2gw-1)+3 and N = NK = gh.gw + 1), in 16-byte-aligned rows of
+// table_ld elements (a multiple of 4, >= table_len); rel_offs: off() of every key token, padded to
+// a multiple of 64 entries (int32; cls and tokens past N as the wrapper
+// builds it).  workspace: flash_attention_workspace_bytes(B, H, NK, dtype)
 // bytes (null for bf16).  Returns 0 on success, a cudaError_t, or a
 // negative code of this file.
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            const void* bias, const void* table, void* out,
+                            const void* bias, const void* table,
+                            const void* rel_offs, void* out,
                             void* workspace, int B, int H, int N, int NK,
                             int head_dim, int bias_batch, int bias_ld,
-                            int table_len, int gh, int gw, float scale,
-                            int dtype, void* stream) {
+                            int table_len, int table_ld, int gh, int gw,
+                            float scale, int dtype, void* stream) {
     if (head_dim != D || N < 1 || NK < 1 || B < 1 || H < 1 || B > 65535 ||
         H > 65535 || (bias && (bias_ld < NK || bias_ld % 16 != 0)) ||
         (dtype == 0 && !workspace))
         return (int)cudaErrorInvalidValue;
-    if (table && (bias || gh < 1 || gw < 1 || N != NK ||
+    if (table && (bias || !rel_offs || gh < 1 || gw < 1 || N != NK ||
                   (long long)gh * gw + 1 != N ||
-                  table_len != (2 * gh - 1) * (2 * gw - 1) + 3))
+                  table_len != (2 * gh - 1) * (2 * gw - 1) + 3 ||
+                  table_ld < table_len || table_ld % REL_E != 0 ||
+                  !rel_window_fits(gw, dtype)))
         return (int)cudaErrorInvalidValue;
-    const RelTable rel = {table, table_len, gh, gw};
+    const RelTable rel = {table, (const int*)rel_offs, table_len, table_ld,
+                          gh, gw};
     cudaStream_t s = (cudaStream_t)stream;
     if (dtype == 0)
         return launch_f32(q, k, v, bias, rel, out, workspace, B, H, N, NK,

@@ -30,7 +30,7 @@ import torch
 from depthmap_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction, bias_row_len, flash_attention,
     flash_attention_plain, flash_attention_rel, pad_bias_rows,
-    rel_pos_index)
+    pad_table_rows, rel_pos_index)
 
 
 class RelBiasSpec(NamedTuple):
@@ -119,7 +119,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v, bias.table)):
             return _attention_rel_grad(q, k, v, bias, scale)
-        table = bias.table.to(q.dtype).t().contiguous()
+        table = pad_table_rows(bias.table, q.dtype)
         return flash_attention_rel(q, k, v, table, (bias.gh, bias.gw), scale)
     if bias is not None and bias.dtype != q.dtype:
         bias = pad_bias_rows(bias, q.dtype)

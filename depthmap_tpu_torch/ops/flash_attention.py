@@ -16,11 +16,18 @@ backward in ordinary torch (``attention_grads``).  Without grad, or with
 no input that requires it, the forward runs alone and saves nothing.
 
 Table mode (``flash_attention_rel``): BEiT's relative-position bias read
-by the kernel straight from the block's (H, T) table, T = (2gh-1)(2gw-1)
-+ 3, at the index ``rel_pos_index`` restates; no bias is materialized.
-It takes CUDA tensors only, as ``flash_attention_cuda`` does; its plain
-version is ``models/attention.py attention_rel_streamed``, where
-``attention`` sends a ``RelBiasSpec`` on CPU tensors.
+by the kernel from the block's (H, T) table, T = (2gh-1)(2gw-1) + 3, at
+the index ``rel_pos_index`` restates; no bias is materialized.  Each kv
+tile's stage holds the window of the head's row that its query and key
+tiles need (``rel_window``), the tile's off() values (from
+``rel_off_table``) and the three cls entries; a grid whose window could
+outgrow the stage's slot (``rel_window_bound``; gw above
+``rel_window_max_gw``) raises ``ValueError``.  The table comes in f32
+(the values of q's dtype, widened), in rows padded to 16 bytes
+(``pad_table_rows``).  It takes CUDA tensors only, as
+``flash_attention_cuda`` does; its plain version is ``models/attention.py
+attention_rel_streamed``, where ``attention`` sends a ``RelBiasSpec`` on
+CPU tensors.
 
 The bias layout the kernel reads: rows padded to a multiple of
 ``BIAS_ROW_ALIGN`` elements (a 16-byte-aligned row for TMA, and one that
@@ -32,6 +39,7 @@ dense bias into it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +49,18 @@ from depthmap_tpu_torch.ops import cuda_build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
 BIAS_ROW_ALIGN = 16
+# K1's tiles: the query rows of a CTA (bf16: one warpgroup of 64; f32:
+# two) and the keys of a kv tile
+QUERY_TILE = {torch.bfloat16: 64, torch.float32: 128}
+KEY_TILE = 64
+# table mode's use of a stage's bias slot (bf16: two 64 x 64 tiles in its
+# REL instance; f32: two boxes of 128 rows of 32): 32 bytes for the cls
+# entries, the kv tile's KEY_TILE int32 off() values, then the window of
+# the f32 table
+REL_SLOT_BYTES = {torch.bfloat16: 16384, torch.float32: 32768}
+REL_WINDOW_AT = 32 + 4 * KEY_TILE
+# f32 table entries per 16 bytes
+REL_ENTRIES_PER_16 = 4
 
 
 def bias_row_len(nk: int) -> int:
@@ -123,25 +143,165 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
 
 
+def rel_base(t: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """base() of query tokens ``t`` on a (gh, gw) grid (token t >= 1 at
+    row r = (t-1) // gw, column c = (t-1) % gw): (r + gh - 1)(2gw - 1) + c
+    + gw - 1; the cls token takes token 1's, as K1's table mode does
+    before it selects the cls entries."""
+    gh, gw = grid
+    p = (t - 1).clamp(min=0)
+    return (p // gw + gh - 1) * (2 * gw - 1) + p % gw + gw - 1
+
+
+def rel_off(t: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """off() of key tokens ``t``: r (2gw - 1) + c, the cls token taking
+    token 1's (0)."""
+    gw = grid[1]
+    p = (t - 1).clamp(min=0)
+    return p // gw * (2 * gw - 1) + p % gw
+
+
 def rel_pos_index(tq: torch.Tensor, tk: torch.Tensor,
                   grid: Tuple[int, int]) -> torch.Tensor:
     """(len(tq), len(tk)) int64 index into a (num_rel + 3)-entry
     relative-position table of query tokens ``tq`` against key tokens
-    ``tk`` on a (gh, gw) grid (token 0 the cls token, token t >= 1 at row
-    (t-1) // gw, column (t-1) % gw), as K1's table mode computes it:
-    base(tq) - off(tk), with base = (r + gh - 1)(2gw - 1) + c + gw - 1 and
-    off = r (2gw - 1) + c; cls -> token num_rel, token -> cls num_rel + 1,
-    cls -> cls num_rel + 2 (the timm layout of
+    ``tk`` on a (gh, gw) grid, as K1's table mode computes it:
+    rel_base(tq) - rel_off(tk); cls -> token num_rel, token -> cls
+    num_rel + 1, cls -> cls num_rel + 2 (the timm layout of
     ``models/beit.py gen_relative_position_index``)."""
     gh, gw = grid
     num_rel = (2 * gh - 1) * (2 * gw - 1)
-    pq, pk = (tq - 1).clamp(min=0), (tk - 1).clamp(min=0)
-    base = (pq // gw + gh - 1) * (2 * gw - 1) + pq % gw + gw - 1
-    off = pk // gw * (2 * gw - 1) + pk % gw
-    idx = base[:, None] - off[None, :]
+    idx = rel_base(tq, grid)[:, None] - rel_off(tk, grid)[None, :]
     q_cls, k_cls = (tq == 0)[:, None], (tk == 0)[None, :]
     idx = torch.where(k_cls, num_rel + 1, idx)
     return torch.where(q_cls, torch.where(k_cls, num_rel + 2, num_rel), idx)
+
+
+def rel_window(q_tile, k_tile, grid: Tuple[int, int],
+               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The window of a head's table row that K1's table mode stages for
+    query tile ``q_tile`` (QUERY_TILE[dtype] rows) against kv tile
+    ``k_tile`` (KEY_TILE keys) on ``grid`` (ints or int tensors, which
+    broadcast): (lo, count), its first entry and its length, both
+    multiples of 16 bytes of the f32 table.  base() and off() rise with
+    the token, so every index of the tile pair but the cls ones lies in
+    [rel_base(qf) - rel_off(kl), rel_base(ql) - rel_off(kf)], qf / ql and
+    kf / kl the first and last tokens of each tile (past N clamped to N -
+    1, cls taking token 1's); the window widens that to 16-byte bounds.
+    Tile (i, j) reads the entry of query token t1 and key token t2 at
+    window position rel_base(t1) - rel_off(t2) - lo."""
+    gh, gw = grid
+    n = gh * gw + 1
+    bq, e = QUERY_TILE[dtype], REL_ENTRIES_PER_16
+    q0 = torch.as_tensor(q_tile) * bq
+    k0 = torch.as_tensor(k_tile) * KEY_TILE
+    lo = rel_base(q0.clamp(min=1), grid) - rel_off(
+        (k0 + KEY_TILE - 1).clamp(max=n - 1), grid)
+    hi = rel_base((q0 + bq - 1).clamp(max=n - 1), grid) - rel_off(
+        k0.clamp(min=1), grid)
+    lo = lo // e * e
+    return lo, -(-(hi + 1) // e) * e - lo
+
+
+def _tile_span(rows: int, gw: int) -> int:
+    """The largest base() (or off()) spread over ``rows`` consecutive
+    tokens of a grid gw wide: rows - 1 steps, and at most (gw + rows - 2)
+    // gw row changes of gw - 1 more each."""
+    return rows - 1 + (gw + rows - 2) // gw * (gw - 1)
+
+
+def rel_window_bound(gw: int, dtype: torch.dtype) -> int:
+    """The most entries ``rel_window`` can give on a grid gw wide (any gh):
+    the query tile's spread, the kv tile's, one, and the widening to
+    16-byte bounds at both ends."""
+    return _tile_span(QUERY_TILE[dtype], gw) + _tile_span(KEY_TILE, gw) + \
+        1 + 2 * (REL_ENTRIES_PER_16 - 1)
+
+
+def rel_window_capacity(dtype: torch.dtype) -> int:
+    """The entries a stage's bias slot holds after the cls entries and the
+    off() values."""
+    return (REL_SLOT_BYTES[dtype] - REL_WINDOW_AT) * REL_ENTRIES_PER_16 // 16
+
+
+@functools.lru_cache(maxsize=None)
+def rel_window_max_gw(dtype: torch.dtype) -> int:
+    """The widest grid table mode takes in ``dtype``: the largest gw whose
+    ``rel_window_bound`` fits ``rel_window_capacity`` (the bound rises with
+    gw from gw = QUERY_TILE on)."""
+    cap = rel_window_capacity(dtype)
+    lo, hi = QUERY_TILE[dtype], 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if rel_window_bound(mid, dtype) <= cap \
+            else (lo, mid - 1)
+    return lo
+
+
+def check_rel_window(grid: Tuple[int, int], dtype: torch.dtype) -> None:
+    """``ValueError`` for a grid whose window could outgrow the stage's
+    bias slot in ``dtype``."""
+    if dtype in _DTYPES and \
+            rel_window_bound(grid[1], dtype) > rel_window_capacity(dtype):
+        raise ValueError(
+            f"grid {tuple(grid)}: table mode's window of the rel-pos table "
+            f"can reach {rel_window_bound(grid[1], dtype)} entries, over the "
+            f"{rel_window_capacity(dtype)} a stage holds in {dtype}; it "
+            f"takes gw <= {rel_window_max_gw(dtype)}")
+
+
+def rel_off_table(grid: Tuple[int, int],
+                  device: torch.device = torch.device("cpu")
+                  ) -> torch.Tensor:
+    """off() of every key token as K1's table mode stages it per kv tile,
+    as the byte offset in the f32 window (4 off(): a score's address is
+    its row's minus it, one subtraction): int32, N rounded up to KEY_TILE
+    entries, the cls token taking token 1's, tokens past N token N -
+    1's."""
+    gh, gw = grid
+    n = gh * gw + 1
+    t = torch.arange(-(-n // KEY_TILE) * KEY_TILE).clamp(max=n - 1)
+    return (4 * rel_off(t, grid)).to(device=device, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _rel_off_table_on(gh: int, gw: int, device: str) -> torch.Tensor:
+    return rel_off_table((gh, gw), torch.device(device))
+
+
+def pad_table_rows(table: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A (T, H) rel-pos table (``RelBiasSpec``'s layout) as the (H, T)
+    table table mode reads: its values rounded to ``dtype`` (q's; default:
+    the table's own) and held in f32, which widens a bf16 value exactly,
+    as the ``[:, :T]`` view of rows padded with zeros to a multiple of 16
+    bytes."""
+    t, h = table.shape
+    e = REL_ENTRIES_PER_16
+    buf = torch.zeros(h, -(-t // e) * e, dtype=torch.float32,
+                      device=table.device)
+    view = buf[:, :t]
+    view.copy_(table.t().to(dtype or table.dtype))
+    return view
+
+
+def table_row_stride(table: torch.Tensor) -> int:
+    """The row stride (elements) of an (H, T) f32 table in the layout
+    table mode reads (rows padded to a multiple of 16 bytes, 16-byte
+    aligned, the padding inside the storage); ``ValueError`` on any other
+    layout."""
+    h, t = table.shape
+    e = REL_ENTRIES_PER_16
+    padded = -(-t // e) * e
+    ld = table.stride(0) if h > 1 else padded
+    size = table.untyped_storage().nbytes() // table.element_size()
+    if ld % e or ld < t or table.data_ptr() % 16 or \
+            table.storage_offset() + (h - 1) * ld + padded > size:
+        raise ValueError(
+            f"table of shape {tuple(table.shape)} and strides "
+            f"{tuple(table.stride())}: table mode reads rows padded to a "
+            "multiple of 16 bytes (pad_table_rows makes that layout)")
+    return ld
 
 
 def _lib():
@@ -149,12 +309,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.flash_attention_forward.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-            ci, ctypes.c_float, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+            ci, ci, ci, ctypes.c_float, ci, vp]
         lib.flash_attention_forward.restype = ci
         lib.flash_attention_workspace_bytes.argtypes = [ci, ci, ci, ci]
         lib.flash_attention_workspace_bytes.restype = sz
-        lib.flash_attention_smem_bytes.argtypes = [ci]
+        lib.flash_attention_smem_bytes.argtypes = [ci, ci]
         lib.flash_attention_smem_bytes.restype = sz
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -176,9 +336,22 @@ def flash_attention_rel(q, k, v, table: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """K1's table mode: softmax(q.k^T * scale + bias) . v with
     bias[h, t1, t2] = table[h, rel_pos_index(t1, t2, grid)].  q, k, v:
-    (B, H, N, 64) with N = gh.gw + 1; table (H, (2gh-1)(2gw-1)+3),
-    contiguous, in q's dtype, shared across the batch, all on one CUDA
-    device; anything else raises."""
+    (B, H, N, 64) with N = gh.gw + 1, gw at most
+    ``rel_window_max_gw(q.dtype)`` (1946 in bf16, 3962 in f32); table
+    (H, (2gh-1)(2gw-1)+3) in f32 holding values of q's dtype (bf16 ones
+    widen exactly, and enter the kernel's fmaf as a materialized bias's
+    do), in contiguous rows padded to a multiple of 16 bytes
+    (``pad_table_rows``), shared across the batch; all on one CUDA
+    device; anything else raises.
+
+    Per kv tile the kernel stages, beside K and V, the window of the
+    head's row that its query and kv tiles need (``rel_window``, at most
+    ``rel_window_bound`` entries), the tile's 64 off() values (the per-grid
+    ``rel_off_table``, built once a grid and device) and, with each
+    stage's first fill, the three cls entries; a score's entry is
+    window[(base - lo) - off], and only query tile 0 and kv tile 0 select
+    cls entries.  A grid past the limit raises ``ValueError`` before any
+    launch: nothing falls back to a gather or the plain version."""
     gh, gw = (int(g) for g in grid)
     b, h, n = q.shape[:3]
     t = (2 * gh - 1) * (2 * gw - 1) + 3
@@ -187,9 +360,11 @@ def flash_attention_rel(q, k, v, table: torch.Tensor,
                          f"mode takes N = Nk = gh.gw + 1 = {gh * gw + 1} "
                          f"for the grid {(gh, gw)}")
     if table.dim() != 2 or tuple(table.shape) != (h, t) or \
-            not table.is_contiguous():
-        raise ValueError(f"table of shape {tuple(table.shape)}: table "
-                         f"mode takes a contiguous ({h}, {t}) table")
+            table.stride(1) != 1 or (h > 1 and table.stride(0) < t):
+        raise ValueError(f"table of shape {tuple(table.shape)} and strides "
+                         f"{tuple(table.stride())}: table mode takes a "
+                         f"({h}, {t}) table in contiguous rows")
+    check_rel_window((gh, gw), q.dtype)
     return _launch(q, k, v, None, table, (gh, gw), scale)
 
 
@@ -199,9 +374,12 @@ def _launch(q, k, v, bias, table, grid, scale) -> torch.Tensor:
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("q, k, v and bias must be on one device")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors
+                                     if t is not table) or \
+            (table is not None and table.dtype != torch.float32):
         raise TypeError(f"dtypes {[t.dtype for t in tensors]}: the kernel "
-                        "takes one of float32 / bfloat16 for all inputs")
+                        "takes one of float32 / bfloat16 for q, k, v and "
+                        "the bias, and a float32 table")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, N, D)")
     b, h, n, d = q.shape
@@ -214,6 +392,9 @@ def _launch(q, k, v, bias, table, grid, scale) -> torch.Tensor:
         raise ValueError("flash_attention_cuda needs contiguous q, k, v")
     bias = _normalize_bias(bias, b, h, n, nk)
     ldb = bias_row_stride(bias) if bias is not None else 0
+    ldt = table_row_stride(table) if table is not None else 0
+    offs = _rel_off_table_on(*grid, str(q.device)) if table is not None \
+        else None
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash_attention_cuda needs 16-byte-aligned inputs")
     if scale is None:
@@ -229,10 +410,11 @@ def _launch(q, k, v, bias, table, grid, scale) -> torch.Tensor:
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            table.data_ptr() if table is not None else None, out.data_ptr(),
+            table.data_ptr() if table is not None else None,
+            offs.data_ptr() if offs is not None else None, out.data_ptr(),
             ws.data_ptr() if ws is not None else None,
             b, h, n, nk, d, bias.shape[0] if bias is not None else 0,
-            ldb, table.shape[1] if table is not None else 0,
+            ldb, table.shape[1] if table is not None else 0, ldt,
             *(grid or (0, 0)), float(scale), code, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel: "

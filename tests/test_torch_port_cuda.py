@@ -978,6 +978,17 @@ REL_CASES = {
     "f32_square": (torch.float32, 1, 16, (16, 16)),
     "bf16_boost_43": (torch.bfloat16, 1, 16, (48, 64)),
     "f32_short": (torch.float32, 1, 4, (5, 7)),
+    # the staged window: a thin grid whose tiles span many grid rows, a
+    # tall one, and the widest grid the stage's slot takes (two grid rows,
+    # so windows cross a row), each in both bodies; 16 heads there, so
+    # the planted cls fault shows (with one head at N = 3893 it moved the
+    # bf16 outputs by 2e-3: a row's cls -> token entries shift all its
+    # logits alike, and key 0 rarely carries weight)
+    **{f"{dn}_{kind}": (dt, b, h, grid)
+       for dn, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))
+       for kind, b, h, grid in (
+           ("thin", 1, 4, (3, 200)), ("tall", 1, 4, (200, 3)),
+           ("window_limit", 1, 16, (2, fa.rel_window_max_gw(dt))))},
 }
 
 
@@ -1009,7 +1020,7 @@ def test_flash_attention_table_mode(case):
     dt, b, h, grid = REL_CASES[case]
     q, k, v, table = _rel_inputs(dt, b, h, grid)
     before = dict(fa.flash_attention_cuda.launches_by_mode)
-    got = fa.flash_attention_rel(q, k, v, table.t().contiguous(), grid)
+    got = fa.flash_attention_rel(q, k, v, fa.pad_table_rows(table), grid)
     torch.cuda.synchronize()
     after = fa.flash_attention_cuda.launches_by_mode
     assert after["rel"] == before["rel"] + 1
@@ -1035,16 +1046,21 @@ def test_flash_attention_table_mode(case):
 
 @pytest.mark.cuda
 def test_flash_attention_table_mode_refuses_what_it_does_not_take():
-    """A table in another dtype and a grid that does not give N raise;
-    nothing launches."""
+    """A table in another dtype than f32, a grid that does not give N and a
+    table whose rows are not padded to 16 bytes raise; nothing
+    launches."""
     _needs_card()
     q, k, v, table = _rel_inputs(torch.bfloat16, 1, 16, (3, 4))
     before = fa.flash_attention_cuda.launches
-    with pytest.raises(TypeError):
-        fa.flash_attention_rel(q, k, v, table.t().float().contiguous(),
+    with pytest.raises(TypeError):   # the table must be f32
+        fa.flash_attention_rel(q, k, v,
+                               fa.pad_table_rows(table).to(torch.bfloat16),
                                (3, 4))
     with pytest.raises(ValueError):
-        fa.flash_attention_rel(q, k, v, table.t().contiguous(), (4, 4))
+        fa.flash_attention_rel(q, k, v, fa.pad_table_rows(table), (4, 4))
+    with pytest.raises(ValueError, match="16 bytes"):   # T = 38: unpadded
+        fa.flash_attention_rel(q, k, v, table.t().float().contiguous(),
+                               (3, 4))
     assert fa.flash_attention_cuda.launches == before
 
 
