@@ -19,6 +19,7 @@ import torch
 
 from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.ops.polylines import polylines_rasterize
+from depthmap_tpu_torch.utils.profiling import stage
 
 STEREO_MODES = ("left-right", "right-left", "top-bottom", "bottom-top",
                 "red-cyan-anaglyph", "left-only", "only-right",
@@ -237,20 +238,22 @@ def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
         device = depthmap.device if isinstance(depthmap, torch.Tensor) \
             else "cuda"
     device = resolve_device(device)
-    image = torch.as_tensor(np.asarray(original_image), device=device)
-    depth = torch.as_tensor(np.asarray(depthmap) if not isinstance(
-        depthmap, torch.Tensor) else depthmap, device=device)
+    with stage("stereo_upload"):
+        image = torch.as_tensor(np.asarray(original_image), device=device)
+        depth = torch.as_tensor(np.asarray(depthmap) if not isinstance(
+            depthmap, torch.Tensor) else depthmap, device=device)
     balance = (stereo_balance + 1) / 2
-    make_left = balance >= 0.001
-    make_right = balance <= 0.999
-    left_eye = image if not make_left else \
-        apply_stereo_divergence(image, depth, +1 * divergence * balance,
-                                -1 * separation, stereo_offset_exponent,
-                                fill_technique)
-    right_eye = image if not make_right else \
-        apply_stereo_divergence(image, depth,
-                                -1 * divergence * (1 - balance), separation,
-                                stereo_offset_exponent, fill_technique)
+    left_eye = right_eye = image
+    if balance >= 0.001:
+        with stage("stereo_eye"):
+            left_eye = apply_stereo_divergence(
+                image, depth, +1 * divergence * balance, -1 * separation,
+                stereo_offset_exponent, fill_technique)
+    if balance <= 0.999:
+        with stage("stereo_eye"):
+            right_eye = apply_stereo_divergence(
+                image, depth, -1 * divergence * (1 - balance), separation,
+                stereo_offset_exponent, fill_technique)
 
     results = []
     for mode in modes:
@@ -272,4 +275,5 @@ def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
             results.append(overlap_red_cyan(right_eye, left_eye))
         else:
             raise ValueError("Unknown mode")
-    return [r.cpu().numpy() for r in results]
+    with stage("stereo_download"):
+        return [r.cpu().numpy() for r in results]

@@ -50,9 +50,9 @@ from depthmap_tpu_torch.ops.heatmap import colorize
 from depthmap_tpu_torch.ops.normalmap import create_normalmap
 from depthmap_tpu_torch.ops.stereo import create_stereoimages
 from depthmap_tpu_torch.options import GenerationOptions
-from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+from depthmap_tpu_torch.pipeline.depth import DepthPredictor, to_host
 from depthmap_tpu_torch.registry import resolve_model_type
-from depthmap_tpu_torch.utils.profiling import stage
+from depthmap_tpu_torch.utils.profiling import new_call, stage
 
 
 class PredictorCache:
@@ -248,6 +248,7 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
     inputdepthmaps_complete = all(x is not None for x in inputdepthmaps)
     inp = GenerationOptions.from_dict(inp if inp is not None else {})
     cache = predictor_cache or _default_cache
+    call = new_call()
     ops = ops or {}
     dev = options_device(inp)
     predictor_kw: Dict[str, Any] = {"device": dev}
@@ -298,33 +299,39 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         total = sum(5 * _pixels(im) for im in inputimages)
         groups: Dict[Tuple[int, int], list] = {}
         if chunk >= 2 and total <= max_bytes:
-            for count, image in enumerate(inputimages):
-                if inputdepthmaps[count] is not None:
-                    continue
-                arr = to_rgb(image)
-                rgb_cache[count] = arr
-                groups.setdefault(arr.shape[:2], []).append((count, arr))
+            with stage("prepare", call):
+                for count, image in enumerate(inputimages):
+                    if inputdepthmaps[count] is not None:
+                        continue
+                    arr = to_rgb(image)
+                    rgb_cache[count] = arr
+                    groups.setdefault(arr.shape[:2], []).append((count, arr))
         for (h, w), members in groups.items():
             if len(members) < 2:
                 continue
             nw, nh = _funnel_net_size(inp, w, h)
             for i in range(0, len(members), chunk):
                 part = members[i:i + chunk]
-                stack = np.stack([m[1] for m in part]).astype(
-                    np.float32) / 255.0
-                with _oom_advice(inp):
-                    maps = predictor.finalized_batch(
+                with stage("prepare", call):
+                    stack = np.stack([m[1] for m in part]).astype(
+                        np.float32) / 255.0
+                with _oom_advice(inp), stage("depth_batch", call):
+                    maps = to_host(predictor.finalized_batch(
                         stack, nw, nh, clip=inp.clipdepth,
                         clip_mode=inp.clipdepth_mode,
                         clip_far=inp.clipdepth_far,
-                        clip_near=inp.clipdepth_near).cpu().numpy()
+                        clip_near=inp.clipdepth_near))
                 for (idx, _), m16 in zip(part, maps):
                     fused[idx] = m16
 
     for count, image in enumerate(inputimages):
-        img = rgb_cache.pop(count, None)
-        if img is None:
-            img = to_rgb(image)
+        # a photo the pre-pass did not predict makes its forward's input
+        serial = inputdepthmaps[count] is None and count not in fused
+        with stage("prepare", call) if serial else contextlib.nullcontext():
+            img = rgb_cache.pop(count, None)
+            if img is None:
+                img = to_rgb(image)
+            img01 = img.astype(np.float32) / 255.0 if serial else None
         h, w = img.shape[:2]
 
         img_output = None
@@ -336,9 +343,8 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             img_output = fused.pop(count)
         else:
             net_w, net_h = _funnel_net_size(inp, w, h)
-            img01 = img.astype(np.float32) / 255.0
             if not raw_to_host:
-                with _oom_advice(inp), stage("depth_predict"):
+                with _oom_advice(inp), stage("depth_predict", call):
                     img_output = predictor.predict_finalized(
                         img01, net_w, net_h, clip=inp.clipdepth,
                         clip_mode=inp.clipdepth_mode,
@@ -350,11 +356,11 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                         boost = cache.get_boost(
                             inp.model_type, tiling_mode=inp.tiling_mode,
                             **predictor_kw)
-                        with stage("boost_estimate"):
+                        with stage("boost_estimate", call):
                             raw = boost.estimate(
                                 img01, whole_size_threshold=boost_rmax)
                 else:
-                    with _oom_advice(inp), stage("depth_predict"):
+                    with _oom_advice(inp), stage("depth_predict", call):
                         raw = predictor.predict(img01, net_w, net_h)
                 depthi = raw
                 invert = predictor.raw_prediction_invert
@@ -400,7 +406,7 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 yield count, "depth", img_depth
 
         if inp.gen_stereo:
-            with stage("stereo"):
+            with stage("stereo", call):
                 stereoimages = create_stereoimages(
                     img, img_output, inp.stereo_divergence,
                     inp.stereo_separation, inp.stereo_modes,

@@ -48,10 +48,18 @@ from depthmap_tpu_torch.parallel.mesh import (canonical, local_devices,
                                               replica, split_run)
 from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
 from depthmap_tpu_torch.registry import MODELS, resolve_model_type
+from depthmap_tpu_torch.utils.profiling import stage
 
 # Per-model reduced-precision policy of the JAX package (the reference's
 # fp16 table): bf16 compute for these types, the final head in f32.
 BF16_MODEL_TYPES = frozenset({1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13, 14})
+
+
+def to_host(maps: torch.Tensor) -> np.ndarray:
+    """Maps on the host, in a ``download`` span: the host waits there for
+    the device's queue to finish the forward, then copies."""
+    with stage("download"):
+        return maps.cpu().numpy()
 
 
 def set_fp32_precision(dev: torch.device) -> None:
@@ -253,13 +261,16 @@ class DepthPredictor:
             return torch.from_numpy(np.stack([
                 self._pipeline_raw(f, net_w) for f in np.asarray(imgs01)
             ])).to(self.device)
-        return split_run(lambda x: self._forward(x, net_w, net_h,
-                                                 resize_mode),
-                         self.devices, self._to_device(imgs01))
+        batch = self._to_device(imgs01)
+        with stage("forward"):
+            return split_run(lambda x: self._forward(x, net_w, net_h,
+                                                     resize_mode),
+                             self.devices, batch)
 
     def _to_device(self, imgs01) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(imgs01, np.float32)).to(
-            self.device, non_blocking=True)
+        with stage("upload"):
+            return torch.as_tensor(np.asarray(imgs01, np.float32)).to(
+                self.device, non_blocking=True)
 
     def _default_size(self, net_w, net_h):
         if net_w is None or net_h is None:
@@ -273,8 +284,8 @@ class DepthPredictor:
         net_w, net_h = self._default_size(net_w, net_h)
         if self.bundle.host_pipeline:
             return self._pipeline_raw(img01, net_w)
-        x = self._to_device(img01)[None]
-        return self._forward(x, net_w, net_h, resize_mode)[0].cpu().numpy()
+        return to_host(self._raw_batch(np.asarray(img01)[None], net_w, net_h,
+                                       resize_mode)[0])
 
     def predict_batch(self, imgs01: np.ndarray, net_w: Optional[int] = None,
                       net_h: Optional[int] = None,
@@ -282,8 +293,7 @@ class DepthPredictor:
         """(N, H, W, 3) same-shape stack -> (N, H, W) raw predictions, one
         forward over the batch."""
         net_w, net_h = self._default_size(net_w, net_h)
-        return self._raw_batch(imgs01, net_w, net_h,
-                               resize_mode).cpu().numpy()
+        return to_host(self._raw_batch(imgs01, net_w, net_h, resize_mode))
 
     def predict_batch_stream(self, stacks, net_w: Optional[int] = None,
                              net_h: Optional[int] = None,
@@ -332,10 +342,11 @@ class DepthPredictor:
         """The device half of predict_finalized_batch: (N, H, W) uint16 on
         the device, each frame finalized against its own range."""
         raw = self._raw_batch(imgs01, net_w, net_h, resize_mode)
-        return numerics.finalize_i16(raw, invert=self.raw_prediction_invert,
-                                     clip=bool(clip), clip_mode=clip_mode,
-                                     clip_far=float(clip_far),
-                                     clip_near=float(clip_near))
+        with stage("finalize"):
+            return numerics.finalize_i16(
+                raw, invert=self.raw_prediction_invert, clip=bool(clip),
+                clip_mode=clip_mode, clip_far=float(clip_far),
+                clip_near=float(clip_near))
 
     def predict_finalized(self, img01: np.ndarray,
                           net_w: Optional[int] = None,
@@ -350,7 +361,7 @@ class DepthPredictor:
                                    clip=clip, clip_mode=clip_mode,
                                    clip_far=clip_far, clip_near=clip_near,
                                    resize_mode=resize_mode)
-        return out[0].cpu().numpy()
+        return to_host(out[0])
 
     def predict_finalized_batch(self, imgs01: np.ndarray,
                                 net_w: Optional[int] = None,
@@ -362,10 +373,10 @@ class DepthPredictor:
         """(N, H, W, 3) same-shape stack -> (N, H, W) uint16, one forward,
         each frame normalized against its own min/max."""
         net_w, net_h = self._default_size(net_w, net_h)
-        return self.finalized_batch(
+        return to_host(self.finalized_batch(
             imgs01, net_w, net_h, clip=clip, clip_mode=clip_mode,
             clip_far=clip_far, clip_near=clip_near,
-            resize_mode=resize_mode).cpu().numpy()
+            resize_mode=resize_mode))
 
     @property
     def raw_prediction_invert(self) -> bool:

@@ -4,10 +4,14 @@ metrics at 1e-6 on seeded maps, and the profiling spans.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
 import os
+import sys
+import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -238,16 +242,12 @@ def test_stage_times_and_reports():
     assert P.timings() == {}
 
 
-def test_stage_opens_a_profiler_span(tmp_path):
+def test_stage_opens_a_profiler_span():
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with P.stage("my_span"):
             torch.ones(4).sum()
     assert "my_span" in {e.key for e in prof.key_averages()}
-    with P.trace(str(tmp_path)):
-        with P.stage("traced_span"):
-            torch.ones(4).sum()
-    assert "traced_span" in open(tmp_path / "trace.json").read()
 
 
 def test_funnel_spans_equal_jax(rng):
@@ -273,5 +273,181 @@ def test_funnel_spans_equal_jax(rng):
     _run(tcore.core_generation_funnel, imgs, None, TOptions(**base),
          _FixedCache(tp))
     counts = {k: len(v) for k, v in P.timings().items()}
-    assert counts == {k: len(v) for k, v in JP.timings().items()}
-    assert counts == {"depth_predict": 2, "stereo": 2}
+    want = {k: len(v) for k, v in JP.timings().items()}
+    assert {k: counts.get(k) for k in want} == want
+    assert want == {"depth_predict": 2, "stereo": 2}
+
+
+def test_stage_enters_no_range_without_a_profiler(monkeypatch):
+    """Outside a profiler a span opens no record_function range; inside
+    one it does."""
+    def refuse(name):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(P, "record_function", refuse)
+    P.reset()
+    with P.stage("quiet"):
+        pass
+    assert [s.name for s in P.spans()] == ["quiet"]
+    opened = []
+    monkeypatch.setattr(P, "record_function", lambda name: opened.append(
+        name) or contextlib.nullcontext())
+    monkeypatch.setattr(P, "_profiler_enabled", lambda: True)
+    with P.stage("ranged"):
+        pass
+    assert opened == ["ranged"]
+
+
+def test_span_records_nest_and_report_self_time():
+    P.reset()
+    call = P.new_call()
+    assert P.new_call() != call
+    with P.stage("outer", call):
+        with P.stage("inner"):
+            time.sleep(0.002)
+        with P.stage("inner"):
+            pass
+    with P.stage("loose"):
+        pass
+    outer, inner1, inner2, loose = P.spans()
+    assert [s.name for s in (outer, inner1, inner2, loose)] == \
+        ["outer", "inner", "inner", "loose"]
+    assert inner1.parent == inner2.parent == outer.id
+    assert outer.parent == loose.parent == -1
+    assert outer.call == inner1.call == inner2.call == call
+    assert loose.call == -1
+    assert outer.start_ns <= inner1.start_ns < inner1.end_ns <= \
+        inner2.start_ns < inner2.end_ns <= outer.end_ns
+    t = P.timings()
+    assert t["outer"][0] == pytest.approx(
+        (outer.end_ns - outer.start_ns) / 1e9)
+    rows = {line.split()[0]: line.split() for line in
+            P.report().splitlines()[1:]}
+    assert rows["outer"][1] == "1" and rows["inner"][1] == "2"
+    self_outer = float(rows["outer"][4])
+    want = t["outer"][0] - sum(t["inner"])
+    assert self_outer == pytest.approx(want, abs=1.5e-3)
+    assert float(rows["inner"][4]) == pytest.approx(sum(t["inner"]),
+                                                    abs=1.5e-3)
+    assert self_outer < float(rows["outer"][2])
+
+
+def test_span_records_stay_bounded():
+    """The record list keeps the newest MAX_RECORDS spans and counts what
+    it drops; reset() clears both (and the timings)."""
+    P.reset()
+    extra = 5
+    for _ in range(P.MAX_RECORDS + extra):
+        with P.stage("many"):
+            pass
+    kept = P.spans()
+    assert len(kept) == P.MAX_RECORDS and P.dropped() == extra
+    assert len(P.timings()["many"]) == P.MAX_RECORDS + extra
+    assert kept[-1].id - kept[0].id == P.MAX_RECORDS - 1
+    P.reset()
+    assert P.spans() == [] and P.dropped() == 0 and P.timings() == {}
+
+
+def test_spans_from_many_threads_lose_nothing():
+    """Threads record into one list and one timing table: none of their
+    spans is lost, and each thread's spans nest only in its own."""
+    P.reset()
+    threads, per = 16, 300
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work(k):
+        for _ in range(per):
+            with P.stage(f"outer{k}"):
+                with P.stage(f"inner{k}"):
+                    pass
+    try:
+        pool = [threading.Thread(target=work, args=(k,))
+                for k in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(switch)
+    records = P.spans()
+    assert len(records) == 2 * threads * per and P.dropped() == 0
+    assert sum(len(v) for v in P.timings().values()) == 2 * threads * per
+    by_id = {s.id: s for s in records}
+    for s in records:
+        if s.name.startswith("inner"):
+            assert by_id[s.parent].name == "outer" + s.name[5:]
+        else:
+            assert s.parent == -1
+
+
+# what each span of a funnel call holds: the pre-pass chunk and the serial
+# photo hold the predictor's four spans, a photo's stereo its own
+FUNNEL_SPANS = {"depth_batch": ["upload", "forward", "finalize", "download"],
+                "depth_predict": ["upload", "forward", "finalize",
+                                  "download"],
+                "stereo": ["stereo_upload", "stereo_eye", "stereo_eye",
+                           "stereo_download"]}
+
+
+def _funnel_spans(monkeypatch, rng):
+    """Two funnel calls on three same-shape photos (the pre-pass, in
+    chunks of 2) and one odd-shaped photo (the serial loop), with stereo:
+    each call's span records."""
+    from depthmap_tpu_torch.options import GenerationOptions as TOptions
+    from depthmap_tpu_torch.pipeline import core as tcore
+    from tests.test_torch_port_funnel import (_FixedCache, _images,
+                                              _predictors, _run)
+    monkeypatch.setenv("DEPTHMAP_FUNNEL_BATCH", "2")
+    _, tp = _predictors()
+    imgs = _images(rng, [(48, 80), (48, 80), (48, 80), (40, 40)])
+    inp = TOptions(compute_device="CPU", model_type=1, net_width=64,
+                   net_height=64, gen_stereo=True)
+    calls = []
+    for _ in range(2):
+        P.reset()
+        out = _run(tcore.core_generation_funnel, imgs, None, inp,
+                   _FixedCache(tp))
+        assert len(out["depth"]) == 4
+        calls.append(P.spans())
+    return calls
+
+
+def test_funnel_span_tree(monkeypatch, rng):
+    """Per chunk a prepare and a depth_batch over upload, forward,
+    finalize and download; per serial photo a prepare and a depth_predict
+    over the same four; per photo a stereo over its upload, two eyes and
+    its download; each child inside its parent; one call identifier a
+    funnel call."""
+    calls = _funnel_spans(monkeypatch, rng)
+    for records in calls:
+        by_id = {s.id: s for s in records}
+        top = [s.name for s in records if s.parent == -1]
+        assert top == ["prepare",                  # the to_rgb loop
+                       "prepare", "depth_batch",   # chunk of 2
+                       "prepare", "depth_batch",   # chunk of 1
+                       "stereo", "stereo", "stereo",
+                       "prepare", "depth_predict", "stereo"]
+        for s in records:
+            children = [c.name for c in records if c.parent == s.id]
+            assert children == FUNNEL_SPANS.get(s.name, []), s.name
+            if s.parent != -1:
+                p = by_id[s.parent]
+                assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+        assert len({s.call for s in records}) == 1
+    assert calls[0][0].call != calls[1][0].call
+
+
+def test_funnel_spans_are_profiler_annotations(monkeypatch, rng, tmp_path):
+    """Under torch.profiler every span of the funnel is a user_annotation
+    of the trace, the category the benchmark reads."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _funnel_spans(monkeypatch, rng)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    seen = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    want = {"prepare"} | set(FUNNEL_SPANS) | {
+        n for names in FUNNEL_SPANS.values() for n in names}
+    assert len(want) == 11 and want <= seen, want - seen
