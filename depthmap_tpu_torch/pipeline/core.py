@@ -313,11 +313,14 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             for i in range(0, len(members), chunk):
                 part = members[i:i + chunk]
                 with stage("prepare", call):
-                    stack = np.stack([m[1] for m in part]).astype(
-                        np.float32) / 255.0
+                    # uint8 photos go as they are: the predictor sends
+                    # their bytes and divides by 255 on its device
+                    photos = [m[1] for m in part]
+                    if not all(p.dtype == np.uint8 for p in photos):
+                        photos = np.stack(photos).astype(np.float32) / 255.0
                 with _oom_advice(inp), stage("depth_batch", call):
                     maps = to_host(predictor.finalized_batch(
-                        stack, nw, nh, clip=inp.clipdepth,
+                        photos, nw, nh, clip=inp.clipdepth,
                         clip_mode=inp.clipdepth_mode,
                         clip_far=inp.clipdepth_far,
                         clip_near=inp.clipdepth_near))
@@ -331,7 +334,13 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             img = rgb_cache.pop(count, None)
             if img is None:
                 img = to_rgb(image)
-            img01 = img.astype(np.float32) / 255.0 if serial else None
+            # the forward's input: a uint8 photo as it is for a device
+            # forward (the predictor divides by 255 there); the host's f32
+            # /255 for Boost, the raw map's host paths and other dtypes
+            net_in = None
+            if serial:
+                net_in = img if img.dtype == np.uint8 and not raw_to_host \
+                    else img.astype(np.float32) / 255.0
         h, w = img.shape[:2]
 
         img_output = None
@@ -346,7 +355,7 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
             if not raw_to_host:
                 with _oom_advice(inp), stage("depth_predict", call):
                     img_output = predictor.predict_finalized(
-                        img01, net_w, net_h, clip=inp.clipdepth,
+                        net_in, net_w, net_h, clip=inp.clipdepth,
                         clip_mode=inp.clipdepth_mode,
                         clip_far=inp.clipdepth_far,
                         clip_near=inp.clipdepth_near)
@@ -358,10 +367,10 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                             **predictor_kw)
                         with stage("boost_estimate", call):
                             raw = boost.estimate(
-                                img01, whole_size_threshold=boost_rmax)
+                                net_in, whole_size_threshold=boost_rmax)
                 else:
                     with _oom_advice(inp), stage("depth_predict", call):
-                        raw = predictor.predict(img01, net_w, net_h)
+                        raw = predictor.predict(net_in, net_w, net_h)
                 depthi = raw
                 invert = predictor.raw_prediction_invert
                 if inp.do_output_depth_prediction and \

@@ -16,6 +16,13 @@ on the device, its resizes and ensemble alignment on the host) in the
 pipeline's own dtype; a batch runs serially.  ``forward_net`` is the forward
 on an input already at net size that Boost calls.
 
+Inputs: a photo, or a same-shape stack or list of them, is (H, W, 3) RGB,
+floating in [0, 1] or uint8 in 0-255.  A floating input crosses to the
+device as f32; a uint8 one crosses as its bytes (from pinned memory on a
+card) and is divided by 255 there (``u8_to_unit``), equal bit for bit to
+the host's ``x.astype(np.float32) / 255.0``; a host pipeline divides on
+the host.
+
 Weights: ``weights_dir``'s checkpoint of the model (Marigold: its
 diffusers tree) where it is there, fetched first under
 DEPTHMAP_ALLOW_DOWNLOAD=1 (``utils/download.py``), else seeded random
@@ -60,6 +67,21 @@ def to_host(maps: torch.Tensor) -> np.ndarray:
     the device's queue to finish the forward, then copies."""
     with stage("download"):
         return maps.cpu().numpy()
+
+
+def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """uint8 values -> f32 in [0, 1] on ``x``'s device, equal bit for bit
+    to numpy's ``x.astype(np.float32) / 255.0``: a true division by a
+    device tensor (a CUDA divide by a host scalar multiplies by the
+    reciprocal, which differs on 126 of the 256 values)."""
+    return torch.div(x, torch.full((), 255.0, dtype=torch.float32,
+                                   device=x.device))
+
+
+def is_u8(imgs) -> bool:
+    """Whether a photo, or every photo of a stack or list, is uint8."""
+    arrays = imgs if isinstance(imgs, (list, tuple)) else [imgs]
+    return all(np.asarray(a).dtype == np.uint8 for a in arrays)
 
 
 def set_fp32_precision(dev: torch.device) -> None:
@@ -239,12 +261,13 @@ class DepthPredictor:
                               resize_mode)
         return self.forward_net(x, imgs01.shape[1:3])
 
-    def _pipeline_raw(self, img01: np.ndarray, net_w: int) -> np.ndarray:
-        """A host pipeline's (Marigold's) (H, W) raw map of one image: the
-        pipeline at processing resolution ``net_w``, resized back
-        (INTER_CUBIC)."""
+    def _pipeline_raw(self, img: np.ndarray, net_w: int) -> np.ndarray:
+        """A host pipeline's (Marigold's) (H, W) raw map of one image (f32
+        in [0, 1], or uint8, divided by 255 here first): the pipeline at
+        processing resolution ``net_w``, resized back (INTER_CUBIC)."""
         from depthmap_tpu_torch.ops.resize import cv2_resize_cubic
-        img01 = np.asarray(img01, np.float32)
+        img01 = np.asarray(img, np.float32) / 255.0 if is_u8(img) else \
+            np.asarray(img, np.float32)
         depth = self.bundle.module(
             img01, processing_res=net_w,
             ensemble_size=self.marigold_ensembles,
@@ -267,10 +290,31 @@ class DepthPredictor:
                                                      resize_mode),
                              self.devices, batch)
 
-    def _to_device(self, imgs01) -> torch.Tensor:
+    def _to_device(self, imgs) -> torch.Tensor:
+        """A same-shape (N, H, W, 3) stack, or a list of (H, W, 3) photos,
+        -> (N, H, W, 3) f32 RGB in [0, 1] on the predictor's device.  The
+        route follows the dtype: floating input (in [0, 1]) crosses as
+        f32; uint8 (0-255) in an ``upload_u8`` span crosses as its bytes,
+        on a card copied once into pinned memory and sent without
+        blocking, and becomes ``u8_to_unit``'s f32 there, the uint8 copy
+        dropped before the forward."""
         with stage("upload"):
-            return torch.as_tensor(np.asarray(imgs01, np.float32)).to(
-                self.device, non_blocking=True)
+            if not is_u8(imgs):
+                return torch.as_tensor(np.asarray(imgs, np.float32)).to(
+                    self.device, non_blocking=True)
+            with stage("upload_u8"):
+                if self.device.type != "cuda":
+                    return u8_to_unit(torch.from_numpy(np.array(imgs)).to(
+                        self.device))
+                host = torch.empty((len(imgs),) + np.shape(imgs[0]),
+                                   dtype=torch.uint8, pin_memory=True)
+                for i, img in enumerate(imgs):
+                    # torch's copy runs on its intra-op threads (4x numpy's
+                    # one core); a read-only array is copied first, as
+                    # torch warns on one
+                    host[i].copy_(torch.from_numpy(
+                        np.require(img, requirements="W")))
+                return u8_to_unit(host.to(self.device, non_blocking=True))
 
     def _default_size(self, net_w, net_h):
         if net_w is None or net_h is None:
@@ -280,7 +324,8 @@ class DepthPredictor:
     def predict(self, img01: np.ndarray, net_w: Optional[int] = None,
                 net_h: Optional[int] = None,
                 resize_mode: Optional[str] = None) -> np.ndarray:
-        """img01: (H, W, 3) float RGB in [0,1] -> raw prediction (H, W)."""
+        """img01: (H, W, 3) RGB, float in [0, 1] or uint8 -> raw
+        prediction (H, W)."""
         net_w, net_h = self._default_size(net_w, net_h)
         if self.bundle.host_pipeline:
             return self._pipeline_raw(img01, net_w)
@@ -290,8 +335,8 @@ class DepthPredictor:
     def predict_batch(self, imgs01: np.ndarray, net_w: Optional[int] = None,
                       net_h: Optional[int] = None,
                       resize_mode: Optional[str] = None) -> np.ndarray:
-        """(N, H, W, 3) same-shape stack -> (N, H, W) raw predictions, one
-        forward over the batch."""
+        """(N, H, W, 3) same-shape stack (float in [0, 1] or uint8) -> (N,
+        H, W) raw predictions, one forward over the batch."""
         net_w, net_h = self._default_size(net_w, net_h)
         return to_host(self._raw_batch(imgs01, net_w, net_h, resize_mode))
 
@@ -339,8 +384,10 @@ class DepthPredictor:
                         clip: bool = False, clip_mode: str = "Range",
                         clip_far: float = 0.0, clip_near: float = 1.0,
                         resize_mode: Optional[str] = None) -> torch.Tensor:
-        """The device half of predict_finalized_batch: (N, H, W) uint16 on
-        the device, each frame finalized against its own range."""
+        """The device half of predict_finalized_batch: a same-shape (N, H,
+        W, 3) stack or list of photos (float in [0, 1] or uint8) -> (N, H,
+        W) uint16 on the device, each frame finalized against its own
+        range."""
         raw = self._raw_batch(imgs01, net_w, net_h, resize_mode)
         with stage("finalize"):
             return numerics.finalize_i16(
@@ -354,8 +401,9 @@ class DepthPredictor:
                           clip: bool = False, clip_mode: str = "Range",
                           clip_far: float = 0.0, clip_near: float = 1.0,
                           resize_mode: Optional[str] = None) -> np.ndarray:
-        """Forward -> finalize_depth -> convert_to_i16 on the device; only
-        the (H, W) uint16 map comes back."""
+        """(H, W, 3) RGB, float in [0, 1] or uint8: forward ->
+        finalize_depth -> convert_to_i16 on the device; only the (H, W)
+        uint16 map comes back."""
         net_w, net_h = self._default_size(net_w, net_h)
         out = self.finalized_batch(np.asarray(img01)[None], net_w, net_h,
                                    clip=clip, clip_mode=clip_mode,
@@ -370,8 +418,9 @@ class DepthPredictor:
                                 clip_far: float = 0.0, clip_near: float = 1.0,
                                 resize_mode: Optional[str] = None
                                 ) -> np.ndarray:
-        """(N, H, W, 3) same-shape stack -> (N, H, W) uint16, one forward,
-        each frame normalized against its own min/max."""
+        """(N, H, W, 3) same-shape stack (float in [0, 1] or uint8) -> (N,
+        H, W) uint16, one forward, each frame normalized against its own
+        min/max."""
         net_w, net_h = self._default_size(net_w, net_h)
         return to_host(self.finalized_batch(
             imgs01, net_w, net_h, clip=clip, clip_mode=clip_mode,

@@ -193,8 +193,9 @@ class _CountingPredictor:
         self.model_type = model_type
         self.raw_prediction_invert = False
 
-    def predict_finalized(self, img01, net_w, net_h, **kw):
-        return (img01[..., 0] * 65535).astype(np.uint16)
+    def predict_finalized(self, img, net_w, net_h, **kw):
+        # a uint8 photo in 0-255, as the funnel hands a device forward
+        return (img[..., 0] / 255.0 * 65535).astype(np.uint16)
 
 
 @pytest.fixture

@@ -21,6 +21,14 @@ from depthmap_tpu_torch.pipeline import core as tcore
 from tests.test_torch_port_funnel import _FixedCache, _images, _run
 
 
+def _unit(imgs) -> np.ndarray:
+    """A predictor's input in [0, 1]: uint8 photos divided by 255 as the
+    host divides them."""
+    imgs = np.asarray(imgs)
+    return imgs.astype(np.float32) / 255.0 if imgs.dtype == np.uint8 \
+        else imgs
+
+
 class _Counting:
     """A predictor that maps the red channel to depth and counts the
     batched and the single calls."""
@@ -29,14 +37,14 @@ class _Counting:
     def __init__(self):
         self.batched = self.single = 0
 
-    def finalized_batch(self, imgs01, net_w, net_h, **kw):
+    def finalized_batch(self, imgs, net_w, net_h, **kw):
         self.batched += 1
         return torch.from_numpy(
-            (np.asarray(imgs01)[..., 0] * 65535).astype(np.uint16))
+            (_unit(imgs)[..., 0] * 65535).astype(np.uint16))
 
-    def predict_finalized(self, img01, net_w, net_h, **kw):
+    def predict_finalized(self, img, net_w, net_h, **kw):
         self.single += 1
-        return (np.asarray(img01)[..., 0] * 65535).astype(np.uint16)
+        return (_unit(img)[..., 0] * 65535).astype(np.uint16)
 
 
 def _capped(rng, monkeypatch, cap):

@@ -382,10 +382,12 @@ def test_spans_from_many_threads_lose_nothing():
 
 
 # what each span of a funnel call holds: the pre-pass chunk and the serial
-# photo hold the predictor's four spans, a photo's stereo its own
+# photo hold the predictor's four spans, the upload of uint8 photos its
+# upload_u8, a photo's stereo its own
 FUNNEL_SPANS = {"depth_batch": ["upload", "forward", "finalize", "download"],
                 "depth_predict": ["upload", "forward", "finalize",
                                   "download"],
+                "upload": ["upload_u8"],
                 "stereo": ["stereo_upload", "stereo_eye", "stereo_eye",
                            "stereo_download"]}
 
@@ -414,9 +416,10 @@ def _funnel_spans(monkeypatch, rng):
 
 
 def test_funnel_span_tree(monkeypatch, rng):
-    """Per chunk a prepare and a depth_batch over upload, forward,
-    finalize and download; per serial photo a prepare and a depth_predict
-    over the same four; per photo a stereo over its upload, two eyes and
+    """Per chunk a prepare and a depth_batch over upload (over its
+    upload_u8: the photos are uint8), forward, finalize and download; per
+    serial photo a prepare and a depth_predict over the same four; per
+    photo a stereo over its upload, two eyes and
     its download; each child inside its parent; one call identifier a
     funnel call."""
     calls = _funnel_spans(monkeypatch, rng)
@@ -450,4 +453,4 @@ def test_funnel_spans_are_profiler_annotations(monkeypatch, rng, tmp_path):
     seen = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     want = {"prepare"} | set(FUNNEL_SPANS) | {
         n for names in FUNNEL_SPANS.values() for n in names}
-    assert len(want) == 11 and want <= seen, want - seen
+    assert len(want) == 12 and want <= seen, want - seen
