@@ -15,10 +15,11 @@ normalizes it itself, returns the map at the input size, and offers
 JAX package's policy for running such a model's core in another dtype
 than its head (``pipeline.depth.precision`` reads it).  A
 ``host_pipeline`` module (Marigold) is a whole pipeline run per image: it
-takes one (H, W, 3) image in [0, 1] as a numpy array with its processing
-resolution and knobs and returns the map at that resolution, names its
-own dtype (``pipeline_dtype()``) and loads its own weights
-(``load_weights(weights_dir, seed)``).  ``boost_preprocess`` is the
+gives the processing size of an image (``processing_size(h, w, res)``),
+takes the (1, 3, h', w') net input in [0, 1] on its device with its knobs
+and returns the (1, h', w') map there, names its own dtype
+(``pipeline_dtype()``) and loads its own weights (``load_weights(
+weights_dir, seed)``).  ``boost_preprocess`` is the
 preprocess Boost feeds a model where it is not the model's own."""
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ class ModelBundle:
     # DEPTHMAP_ZOE_CORE_DTYPE, bf16 by default) or "knk_head_f32" (bf16
     # core, f32 head unless DEPTHMAP_ZOE_KNK_HEAD_F32=0); None: one dtype
     selective_core: Optional[str] = None
-    # a per-image pipeline on the host (Marigold): its own dtype and
-    # loader, its convolutions never tiled, a batch run image by image
+    # a per-image pipeline (Marigold): its own dtype and loader, its
+    # convolutions never tiled, a batch run image by image
     host_pipeline: bool = False
     # what Boost feeds the net, where it differs from ``preprocess``
     boost_preprocess: Optional[PreprocessCfg] = None
@@ -57,7 +58,7 @@ class ModelBundle:
 
 def is_host_pipeline(model_type) -> bool:
     """Whether ``build_model(model_type)`` gives a host pipeline, known
-    without building it (the funnel and the predictor cache pass and key
+    without building it (the funnel and the predictor cache pass and set
     the pipeline's knobs by it)."""
     return MODELS[resolve_model_type(model_type)].family == "marigold"
 

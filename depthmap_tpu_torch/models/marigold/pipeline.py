@@ -13,9 +13,13 @@ f32, with each step's coefficients computed on the host.  In bf16 the VAE
 runs in bf16 and the UNet, as the JAX one under flax's dtype promotion,
 in f32 on the bf16-rounded weights from its first time-embedding add on
 (``unet.py``).  The initial noise comes from a ``torch.Generator`` on the
-module's device seeded with ``seed`` (``noise=`` injects it).  The
-resizes of the image and of the result are cv2's INTER_CUBIC, restated
-(``ops/resize.py``).  Given a list of ``devices``, the members are split
+module's device seeded with ``seed`` (``noise=`` injects it).
+
+Two entries: ``forward`` (the predictor's) takes the (N, 3, h', w') net
+input on the device, already at the processing size, and gives the maps
+there; ``infer`` (the JAX pipeline's call) takes the host's (H, W, 3)
+image, resizes it with cv2's INTER_CUBIC restated (``ops/resize.py``) and
+gives a numpy map.  Given a list of ``devices``, the members are split
 over the largest number of them that divides the member count (the JAX
 package's ``_shard_ensemble``; a CPU list only under
 DEPTHMAP_SHARD_ENSEMBLE=1), each share denoised by the pipeline's copy on
@@ -36,6 +40,7 @@ from depthmap_tpu_torch.models.marigold.unet import MarigoldUNet
 from depthmap_tpu_torch.models.marigold.vae import VAE_SCALE, AutoencoderKL
 from depthmap_tpu_torch.ops.resize import cv2_resize_cubic
 from depthmap_tpu_torch.parallel.mesh import canonical, replica, split_run
+from depthmap_tpu_torch.utils.profiling import stage
 
 CONTEXT_LEN = 77
 
@@ -47,6 +52,10 @@ def marigold_dtype() -> torch.dtype:
 
 
 class MarigoldPipeline(nn.Module):
+    # UNet evaluations of every pipeline and copy since import, as K1's
+    # ``flash_attention_cuda.launches`` counts its launches
+    unet_evals = 0
+
     def __init__(self, vae: Optional[AutoencoderKL] = None,
                  unet: Optional[MarigoldUNet] = None,
                  context_dim: int = 1024):
@@ -94,34 +103,50 @@ class MarigoldPipeline(nn.Module):
         return torch.randn((n, 4, lh, lw), generator=g, device=self.device,
                            dtype=torch.float32)
 
+    @staticmethod
+    def processing_size(h: int, w: int, processing_res: int):
+        """(h', w'): an h x w image scaled so that its longer side is
+        ``processing_res``, each side rounded to a multiple of 8."""
+        scale = processing_res / max(h, w)
+        return (max(int(round(h * scale / 8)) * 8, 8),
+                max(int(round(w * scale / 8)) * 8, 8))
+
     @torch.no_grad()
     def single_infer(self, rgb01: torch.Tensor, denoising_steps: int,
                      noise: torch.Tensor) -> torch.Tensor:
         """rgb01: (N, 3, H, W) in [0, 1] on the module's device, H and W
         multiples of 8; noise: (N, 4, H/8, W/8) f32 -> (N, H, W) depth in
-        [0, 1], f32."""
+        [0, 1], f32.  Spans: ``marigold_encode``, ``marigold_denoise``
+        holding one ``marigold_unet`` a step, ``marigold_decode``; each
+        step adds one to ``unet_evals``."""
         cdt = self.compute_dtype
         tsteps, coefs = self.scheduler.coefficients(denoising_steps)
         v_pred = self.scheduler.prediction_type == "v_prediction"
-        mean = self.vae.encode_mean((rgb01 * 2.0 - 1.0).to(cdt))
-        rgb_latent = (mean * VAE_SCALE).to(torch.float32)
+        with stage("marigold_encode"):
+            mean = self.vae.encode_mean((rgb01 * 2.0 - 1.0).to(cdt))
+            rgb_latent = (mean * VAE_SCALE).to(torch.float32)
         n = rgb_latent.shape[0]
         latent = noise.to(self.device, torch.float32)
         ctx = self.empty_text_embed.to(cdt).expand(n, -1, -1)
-        for t, (c0, c1, c2, c3) in zip(tsteps.tolist(), coefs.tolist()):
-            unet_in = torch.cat([rgb_latent, latent], 1).to(cdt)
-            ts = torch.full((n,), t, dtype=torch.int32, device=self.device)
-            out = self.unet(unet_in, ts, ctx).to(torch.float32)
-            if v_pred:
-                pred_x0 = c0 * latent - c1 * out
-                eps = c0 * out + c1 * latent
-            else:
-                pred_x0 = (latent - c1 * out) / c0
-                eps = out
-            latent = c2 * pred_x0 + c3 * eps
-        depth = self.vae.decode((latent / VAE_SCALE).to(cdt))
-        depth = depth.to(torch.float32).mean(1)
-        return torch.clamp(depth * 0.5 + 0.5, 0.0, 1.0)
+        with stage("marigold_denoise"):
+            for t, (c0, c1, c2, c3) in zip(tsteps.tolist(), coefs.tolist()):
+                unet_in = torch.cat([rgb_latent, latent], 1).to(cdt)
+                ts = torch.full((n,), t, dtype=torch.int32,
+                                device=self.device)
+                with stage("marigold_unet"):
+                    out = self.unet(unet_in, ts, ctx).to(torch.float32)
+                MarigoldPipeline.unet_evals += 1
+                if v_pred:
+                    pred_x0 = c0 * latent - c1 * out
+                    eps = c0 * out + c1 * latent
+                else:
+                    pred_x0 = (latent - c1 * out) / c0
+                    eps = out
+                latent = c2 * pred_x0 + c3 * eps
+        with stage("marigold_decode"):
+            depth = self.vae.decode((latent / VAE_SCALE).to(cdt))
+            depth = depth.to(torch.float32).mean(1)
+            return torch.clamp(depth * 0.5 + 0.5, 0.0, 1.0)
 
     @staticmethod
     def ensemble_devices(members: int, devices) -> list:
@@ -139,38 +164,67 @@ class MarigoldPipeline(nn.Module):
                 if members % k == 0)
         return devices[:d] if d > 1 else []
 
-    def members(self, rgb01: np.ndarray, processing_res: int = 768,
-                ensemble_size: int = 5, denoising_steps: int = 12,
-                seed: int = 0, noise: Optional[torch.Tensor] = None,
-                devices=None) -> np.ndarray:
-        """The ensemble's members before alignment: rgb01 (H, W, 3) float
-        in [0, 1] -> (ensemble, h', w') depths in [0, 1], h' and w' the
-        processing size.  ``noise``: the (ensemble, 4, h'/8, w'/8)
-        initial latents, else drawn from ``seed`` on the pipeline's
-        device.  ``devices``: split the members over them
-        (``ensemble_devices``)."""
-        h, w = rgb01.shape[:2]
-        scale = processing_res / max(h, w)
-        nh = max(int(round(h * scale / 8)) * 8, 8)
-        nw = max(int(round(w * scale / 8)) * 8, 8)
-        rgb = cv2_resize_cubic(np.asarray(rgb01, np.float32),
-                               (nw, nh)).clip(0, 1)
-        x = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
-        batch = x.permute(2, 0, 1)[None].expand(ensemble_size, -1, -1, -1)
+    def _members(self, rgb01: torch.Tensor, ensemble_size: int,
+                 denoising_steps: int, seed: int,
+                 noise: Optional[torch.Tensor], devices) -> torch.Tensor:
+        """(3, h, w) f32 in [0, 1] on the device -> (ensemble, h, w)
+        members there, split over ``devices`` (``ensemble_devices``)."""
+        h, w = rgb01.shape[1:]
+        batch = rgb01[None].expand(ensemble_size, -1, -1, -1)
         if noise is None:
-            noise = self.draw_noise(ensemble_size, nh // 8, nw // 8, seed)
+            noise = self.draw_noise(ensemble_size, h // 8, w // 8, seed)
         return split_run(
             lambda b, z: replica(self, b.device).single_infer(
                 b, denoising_steps, z),
             self.ensemble_devices(ensemble_size, devices), batch,
-            torch.as_tensor(noise).to(batch.device)).cpu().numpy()
+            torch.as_tensor(noise).to(batch.device))
 
-    def forward(self, rgb01: np.ndarray, processing_res: int = 768,
-                ensemble_size: int = 5, denoising_steps: int = 12,
-                seed: int = 0, match_input_res: bool = False,
+    def forward(self, x: torch.Tensor, ensemble_size: int = 5,
+                denoising_steps: int = 12, seed: int = 0,
                 noise: Optional[torch.Tensor] = None,
+                devices=None) -> torch.Tensor:
+        """x: (N, 3, h, w) f32 RGB in [0, 1] on the module's device, at
+        the processing size (multiples of 8) -> (N, h, w) f32 depth in
+        [0, 1] there.  Each image's members are one denoise from ``seed``
+        (or ``noise``); more than one member are aligned on the host
+        (``ensemble_depths``, in a ``marigold_ensemble`` span)."""
+        out = []
+        for img in x:
+            preds = self._members(img, ensemble_size, denoising_steps, seed,
+                                  noise, devices)
+            if ensemble_size > 1:
+                with stage("marigold_ensemble"):
+                    preds = torch.from_numpy(ensemble_depths(
+                        preds.cpu().numpy())).to(x.device)[None]
+            out.append(preds[0])
+        return torch.stack(out)
+
+    def members(self, rgb01: np.ndarray, processing_res: int = 768,
+                ensemble_size: int = 5, denoising_steps: int = 12,
+                seed: int = 0, noise: Optional[torch.Tensor] = None,
                 devices=None) -> np.ndarray:
-        """rgb01: (H, W, 3) float in [0, 1] -> (h', w') depth in [0, 1]
+        """The ensemble's members before alignment, on the host: rgb01
+        (H, W, 3) float in [0, 1] -> (ensemble, h', w') depths in [0, 1],
+        h' and w' the processing size (``processing_size``), the image
+        resized there by ``cv2_resize_cubic``.  ``noise``: the (ensemble,
+        4, h'/8, w'/8) initial latents, else drawn from ``seed`` on the
+        pipeline's device.  ``devices``: split the members over them."""
+        h, w = rgb01.shape[:2]
+        nh, nw = self.processing_size(h, w, processing_res)
+        rgb = cv2_resize_cubic(np.asarray(rgb01, np.float32),
+                               (nw, nh)).clip(0, 1)
+        x = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
+        return self._members(x.permute(2, 0, 1), ensemble_size,
+                             denoising_steps, seed, noise,
+                             devices).cpu().numpy()
+
+    def infer(self, rgb01: np.ndarray, processing_res: int = 768,
+              ensemble_size: int = 5, denoising_steps: int = 12,
+              seed: int = 0, match_input_res: bool = False,
+              noise: Optional[torch.Tensor] = None,
+              devices=None) -> np.ndarray:
+        """The whole inference on the host's arrays, as the JAX pipeline's
+        call: rgb01 (H, W, 3) float in [0, 1] -> (h', w') depth in [0, 1]
         (the input size with ``match_input_res``): ``members`` (the
         arguments are its), then their alignment on the host."""
         preds = self.members(rgb01, processing_res, ensemble_size,

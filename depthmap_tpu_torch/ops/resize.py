@@ -1,5 +1,6 @@
 """Image resizing: thin ``F.interpolate`` calls on NCHW tensors, JAX's
-``scale_and_translate`` and the cv2 resizes Boost and Marigold make.
+``scale_and_translate`` and the cv2 resizes Boost and Marigold make (on
+the host, and Marigold's cubic one also on the device).
 
 The JAX package rebuilds torch's interpolation semantics from explicit tap
 matrices (depthmap_tpu/ops/resize.py); here torch's own operator is those
@@ -172,6 +173,29 @@ def cv2_resize_cubic(img: np.ndarray, size) -> np.ndarray:
     """cv2.resize(img, size, interpolation=cv2.INTER_CUBIC) of a float32
     (H, W) or (H, W, C) image; ``size`` is (width, height)."""
     return _cv2_resize(np.asarray(img, np.float32), size, cubic=True)
+
+
+def cv2_resize_cubic_t(x: torch.Tensor, size) -> torch.Tensor:
+    """``cv2_resize_cubic`` on the device: the trailing (H, W) axes of an
+    f32 tensor, the same taps, f32-rounded weights, f64 sums in the same
+    order and the f32 row buffer, so the result is numpy's bit for bit.
+    ``size`` is (width, height)."""
+    out_w, out_h = int(size[0]), int(size[1])
+    dev = x.device
+
+    def taps(in_size, out_size):
+        idx, w = _cv2_taps(in_size, out_size, cubic=True)
+        w = w.astype(np.float32).astype(np.float64)
+        return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+    ix, wx = taps(x.shape[-1], out_w)
+    iy, wy = taps(x.shape[-2], out_h)
+    x = x.to(torch.float64)
+    t = sum(x.index_select(-1, ix[:, k]) * wx[:, k]
+            for k in range(ix.shape[1]))
+    t = t.to(torch.float32).to(torch.float64)
+    out = sum(t.index_select(-2, iy[:, k]) * wy[:, k, None]
+              for k in range(iy.shape[1]))
+    return out.to(torch.float32)
 
 
 def cv2_dilate(img: np.ndarray, k: int) -> np.ndarray:

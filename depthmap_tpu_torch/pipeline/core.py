@@ -8,13 +8,14 @@ and the stereo modes are uint8 RGB.
 Every model of the zoo runs: LeReS (type 0), the MiDaS / DPT zoo (types
 1-6), ZoeDepth n / k / nk (types 7-9), Marigold (type 10: its
 ``marigold_ensembles`` and ``marigold_steps`` ops, 5 and 12 by default,
-build its predictor) and Depth Anything v1 / v2 (the default options'
-model, Depth Anything v2 Base).  Ported outputs: depth (plain, inverted,
-concatenated), depth_prediction, stereo with all five fills, the normal
-map ((H, W, 3) uint8, computed on the funnel's device), the heatmap ((H,
-W, 4) uint8) and the simple mesh (the path of the OBJ written).  ``boost``
-runs the Boost merge (``pipeline/boost.py``) on any model, up to the
-``boost_rmax`` op (1600 by default); its pix2pix weights come from
+set its predictor's members and steps; an ``inp`` given as a mapping may
+carry them too, ``ops`` winning) and Depth Anything v1 / v2 (the default
+options' model, Depth Anything v2 Base).  Ported outputs: depth (plain,
+inverted, concatenated), depth_prediction, stereo with all five fills, the
+normal map ((H, W, 3) uint8, computed on the funnel's device), the heatmap
+((H, W, 4) uint8) and the simple mesh (the path of the OBJ written).
+``boost`` runs the Boost merge (``pipeline/boost.py``) on any model, up to
+the ``boost_rmax`` op (1600 by default); its pix2pix weights come from
 ``<weights_dir>/pix2pix/latest_net_G.pth``, and without that file it raises
 FileNotFoundError unless DEPTHMAP_ALLOW_RANDOM_PIX2PIX=1.
 ``gen_inpainted_mesh`` collects every image with its uint16 map and, after
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +56,9 @@ from depthmap_tpu_torch.registry import resolve_model_type
 from depthmap_tpu_torch.utils.profiling import new_call, stage
 
 
+MARIGOLD_OPS = ("marigold_ensembles", "marigold_steps")
+
+
 class PredictorCache:
     """Keeps the last predictor alive across funnel invocations."""
 
@@ -65,16 +69,21 @@ class PredictorCache:
 
     def get(self, model_type, tiling_mode: bool = False,
             **kw) -> DepthPredictor:
+        """The kept predictor where the model and its build arguments
+        match, else a new one.  Marigold's knobs (``marigold_*``) are
+        settings of each call, not of the build: given, they are set on the
+        predictor of type 10; any other model ignores them."""
         mt = resolve_model_type(model_type)
-        if not is_host_pipeline(mt):   # Marigold's knobs shape it alone
-            kw = {k: v for k, v in kw.items()
-                  if not k.startswith("marigold_")}
+        knobs = {k: kw.pop(k) for k in list(kw) if k.startswith("marigold_")}
         key = (mt, tiling_mode, tuple(sorted(kw.items())))
         if self._predictor is None or self._key != key:
             self.release()   # free the old model first
             self._predictor = DepthPredictor(mt, tiling_mode=tiling_mode,
                                              **kw)
             self._key = key
+        if is_host_pipeline(mt):
+            for k, v in knobs.items():
+                setattr(self._predictor, k, v)
         return self._predictor
 
     def get_boost(self, model_type, weights_dir: str = "./models", **kw):
@@ -246,10 +255,18 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
     if inputdepthmaps is None or len(inputdepthmaps) == 0:
         inputdepthmaps = [None] * len(inputimages)
     inputdepthmaps_complete = all(x is not None for x in inputdepthmaps)
+    # a mapping's Marigold knobs (the REST API's options) count as ops,
+    # their keys read as GenerationOptions.from_dict reads a field's
+    given = {}
+    if isinstance(inp, Mapping):
+        for k, v in inp.items():
+            name = str(getattr(k, "name", k)).lower()
+            if name in MARIGOLD_OPS:
+                given[name] = v
     inp = GenerationOptions.from_dict(inp if inp is not None else {})
     cache = predictor_cache or _default_cache
     call = new_call()
-    ops = ops or {}
+    ops = {**given, **(ops or {})}
     dev = options_device(inp)
     predictor_kw: Dict[str, Any] = {"device": dev}
     if ops.get("no_half"):

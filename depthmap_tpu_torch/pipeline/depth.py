@@ -11,17 +11,18 @@ relative-depth core runs in ``core_dtype``, its metric head in f32.  What
 a backbone computes per grid from its parameters alone (BEiT's
 relative-position biases, DINOv2's resized position embeddings) is
 computed once per net input size and kept.  A host-pipeline bundle
-(Marigold) runs its pipeline per image (``_pipeline_raw``: the diffusion
-on the device, its resizes and ensemble alignment on the host) in the
-pipeline's own dtype; a batch runs serially.  ``forward_net`` is the forward
-on an input already at net size that Boost calls.
+(Marigold) runs its pipeline per image (``_pipeline_maps``: the resizes to
+the processing size and back, cv2's INTER_CUBIC restated, and the
+diffusion on the device; an ensemble of more than one member is aligned on
+the host) in the pipeline's own dtype; a batch runs serially.
+``forward_net`` is the forward on an input already at net size that Boost
+calls.
 
 Inputs: a photo, or a same-shape stack or list of them, is (H, W, 3) RGB,
 floating in [0, 1] or uint8 in 0-255.  A floating input crosses to the
 device as f32; a uint8 one crosses as its bytes (from pinned memory on a
 card) and is divided by 255 there (``u8_to_unit``), equal bit for bit to
-the host's ``x.astype(np.float32) / 255.0``; a host pipeline divides on
-the host.
+the host's ``x.astype(np.float32) / 255.0``; a host pipeline's too.
 
 Weights: ``weights_dir``'s checkpoint of the model (Marigold: its
 diffusers tree) where it is there, fetched first under
@@ -50,7 +51,7 @@ import torch
 from depthmap_tpu_torch.device import resolve_device
 from depthmap_tpu_torch.models.build import ModelBundle, build_model
 from depthmap_tpu_torch.ops import numerics
-from depthmap_tpu_torch.ops.resize import interpolate
+from depthmap_tpu_torch.ops.resize import cv2_resize_cubic_t, interpolate
 from depthmap_tpu_torch.parallel.mesh import (canonical, local_devices,
                                               replica, split_run)
 from depthmap_tpu_torch.pipeline.preprocess import preprocess_images
@@ -261,31 +262,38 @@ class DepthPredictor:
                               resize_mode)
         return self.forward_net(x, imgs01.shape[1:3])
 
-    def _pipeline_raw(self, img: np.ndarray, net_w: int) -> np.ndarray:
-        """A host pipeline's (Marigold's) (H, W) raw map of one image (f32
-        in [0, 1], or uint8, divided by 255 here first): the pipeline at
-        processing resolution ``net_w``, resized back (INTER_CUBIC)."""
-        from depthmap_tpu_torch.ops.resize import cv2_resize_cubic
-        img01 = np.asarray(img, np.float32) / 255.0 if is_u8(img) else \
-            np.asarray(img, np.float32)
-        depth = self.bundle.module(
-            img01, processing_res=net_w,
-            ensemble_size=self.marigold_ensembles,
-            denoising_steps=self.marigold_steps, match_input_res=False,
-            devices=self.devices)
-        return cv2_resize_cubic(depth, (img01.shape[1], img01.shape[0]))
+    def _pipeline_maps(self, batch: torch.Tensor,
+                       net_w: int) -> torch.Tensor:
+        """A host pipeline's (Marigold's) (N, H, W) raw maps of an (N, H,
+        W, 3) f32 stack on the device, one photo at a time: resized to the
+        processing size for ``net_w`` (cv2's INTER_CUBIC restated on the
+        device, then clipped to [0, 1]), the pipeline's forward on the
+        (1, 3, h', w') net input, its map resized back the same way; both
+        resizes in ``marigold_resize`` spans."""
+        module = self.bundle.module
+        h, w = batch.shape[1:3]
+        nh, nw = module.processing_size(h, w, net_w)
+        maps = []
+        for img in batch:
+            with stage("marigold_resize"):
+                x = cv2_resize_cubic_t(img.permute(2, 0, 1), (nw, nh))
+                x = x.clamp(0.0, 1.0)[None]
+            depth = module(x, ensemble_size=self.marigold_ensembles,
+                           denoising_steps=self.marigold_steps,
+                           devices=self.devices)
+            with stage("marigold_resize"):
+                maps.append(cv2_resize_cubic_t(depth, (w, h)))
+        return torch.cat(maps)
 
     def _raw_batch(self, imgs01, net_w: int, net_h: int,
                    resize_mode: Optional[str] = None) -> torch.Tensor:
         """(N, H, W) raw maps on the device, the stack split over the
-        devices where their number divides it; a host pipeline one image
-        at a time."""
-        if self.bundle.host_pipeline:
-            return torch.from_numpy(np.stack([
-                self._pipeline_raw(f, net_w) for f in np.asarray(imgs01)
-            ])).to(self.device)
+        devices where their number divides it; a host pipeline's one
+        photo at a time, its members split over them instead."""
         batch = self._to_device(imgs01)
         with stage("forward"):
+            if self.bundle.host_pipeline:
+                return self._pipeline_maps(batch, net_w)
             return split_run(lambda x: self._forward(x, net_w, net_h,
                                                      resize_mode),
                              self.devices, batch)
@@ -327,8 +335,6 @@ class DepthPredictor:
         """img01: (H, W, 3) RGB, float in [0, 1] or uint8 -> raw
         prediction (H, W)."""
         net_w, net_h = self._default_size(net_w, net_h)
-        if self.bundle.host_pipeline:
-            return self._pipeline_raw(img01, net_w)
         return to_host(self._raw_batch(np.asarray(img01)[None], net_w, net_h,
                                        resize_mode)[0])
 

@@ -49,16 +49,16 @@ def test_inference_matches_jax():
     for match in (False, True):
         want = jpipe(img, processing_res=64, ensemble_size=1,
                      denoising_steps=2, seed=5, match_input_res=match)
-        got = tpipe(img, processing_res=64, ensemble_size=1,
-                    denoising_steps=2, match_input_res=match,
-                    noise=jax_noise(1, 6, 8, 5))
+        got = tpipe.infer(img, processing_res=64, ensemble_size=1,
+                          denoising_steps=2, match_input_res=match,
+                          noise=jax_noise(1, 6, 8, 5))
         assert got.shape == want.shape == ((40, 56) if match else (48, 64))
         np.testing.assert_allclose(got, want, rtol=0, atol=MAP_ATOL)
     want = jpipe(img, processing_res=64, ensemble_size=2, denoising_steps=2,
                  seed=5)
     noise = jax_noise(2, 6, 8, 5)
-    got = tpipe(img, processing_res=64, ensemble_size=2, denoising_steps=2,
-                noise=noise)
+    got = tpipe.infer(img, processing_res=64, ensemble_size=2,
+                      denoising_steps=2, noise=noise)
     members = tpipe.single_infer(_nchw(tmp.cv2_resize_cubic(img, (64, 48))
                                        .clip(0, 1)[None]).expand(
                                            2, -1, -1, -1), 2, noise).numpy()

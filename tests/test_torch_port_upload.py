@@ -131,18 +131,28 @@ def test_one_upload_u8_per_device_forward(tiny, monkeypatch):
 
 def test_a_host_pipeline_gets_the_host_division(tiny, monkeypatch):
     """A host pipeline (Marigold's route) given uint8 photos through the
-    funnel sees the host's f32 /255 and opens no upload."""
+    funnel takes the device route: one upload_u8 for the pre-pass's chunk,
+    and each photo's (1, 3, H, W) net input equal bit for bit to the
+    host's f32 /255 (the processing size here is the photo's own, where
+    the cubic resize is the identity)."""
     seen = []
 
-    def pipeline(img01, **kw):
-        seen.append(img01)
-        return img01[..., 0]
+    class Pipeline:
+        @staticmethod
+        def processing_size(h, w, processing_res):
+            return h, w
+
+        def __call__(self, x, **kw):
+            seen.append(x)
+            return x[:, 0]
     monkeypatch.setattr(tiny, "bundle", dataclasses.replace(
-        tiny.bundle, module=pipeline, host_pipeline=True))
+        tiny.bundle, module=Pipeline(), host_pipeline=True))
     names = _funnel_spans(tiny, 2)
-    assert "upload" not in names and "upload_u8" not in names
+    assert names.count("upload") == names.count("upload_u8") == 1
+    assert names.count("marigold_resize") == 4
     want = [p.astype(np.float32) / 255.0 for p in _photos(2)]
     assert len(seen) == 2
     for got, w in zip(seen, want):
-        assert got.dtype == np.float32
-        np.testing.assert_array_equal(got, w)
+        assert got.dtype == torch.float32 and got.shape == (1, 3) + \
+            w.shape[:2]
+        np.testing.assert_array_equal(got[0].permute(1, 2, 0).numpy(), w)
