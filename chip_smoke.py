@@ -1043,12 +1043,16 @@ def phase_k1():
 
 
 def k2_stages(img, nd, div, sharp):
-    """K2's two stages timed apart, and the sweep's steps: (sort_ms,
-    sweep_ms, max steps of a row, mean steps)."""
+    """K2's two stages timed apart, the sweep's steps and its replay
+    counters on one call: (sort_ms, sweep_ms, max steps of a row, mean
+    steps, counters)."""
     import torch
     from depthmap_tpu_torch.ops import polylines as pl
     rows, w, ch = img.shape
     sorted_, rgb, order = pl._sort_cuda(img, nd, div, 0.0, 1.0, sharp)
+    pl.reset_replay_counts()
+    pl._sweep_cuda(sorted_, rgb, order, w, ch, sharp)
+    counts = pl.replay_counts()
     sort_ms = cuda_ms(lambda: pl._sort_cuda(img, nd, div, 0.0, 1.0, sharp),
                       5)
     sweep_ms = cuda_ms(lambda: pl._sweep_cuda(sorted_, rgb, order, w, ch,
@@ -1061,7 +1065,7 @@ def k2_stages(img, nd, div, sharp):
                          device=pts.device).expand(rows, 2).contiguous()
     lo = torch.searchsorted(pts, edges)
     steps = (lo[:, 1] - lo[:, 0] + w).double()
-    return sort_ms, sweep_ms, int(steps.max()), float(steps.mean())
+    return sort_ms, sweep_ms, int(steps.max()), float(steps.mean()), counts
 
 
 def k2_inputs(g, rows, w):
@@ -1119,11 +1123,15 @@ def phase_k2():
         extra = {}
         if (rows, depth) not in staged:
             staged.add((rows, depth))
-            sort_ms, sweep_ms, steps, mean = k2_stages(img, m, div, sharp)
+            sort_ms, sweep_ms, steps, mean, counts = k2_stages(img, m, div,
+                                                               sharp)
             extra = dict(sort_ms=f"{sort_ms:.4f}", sweep_ms=f"{sweep_ms:.4f}",
                          steps_max=steps, steps_mean=f"{mean:.1f}",
                          sweep_ns_per_step=f"{sweep_ms * 1e6 / steps:.1f}",
-                         share_of_bound=f"{bounds[rows][0] / ms:.5f}")
+                         share_of_bound=f"{bounds[rows][0] / ms:.5f}",
+                         parts=counts["parts"],
+                         parts_replayed=counts["parts_replayed"],
+                         rows_whole=counts["rows_whole"])
         log("3-k2", shape=f"{rows}x{img.shape[1]}", depth=depth, sharp=sharp,
             divergence_px=div, bytes_differ=ndiff, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.1f}", **extra)

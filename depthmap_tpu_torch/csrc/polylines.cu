@@ -1,5 +1,5 @@
 // Polylines stereo rasterizer for Hopper (sm_90a): a parallel stable sort
-// per row, then a sweep with one warp per row.
+// per row, then a sweep that decides each sub-pixel part on its own.
 //
 // Replaces the Pallas TPU kernel depthmap_tpu/ops/polylines_pallas.py
 // (polylines_rasterize_pallas -> _rasterize_rows, body _make_kernel).  The
@@ -17,12 +17,8 @@
 //  * everything is f64, and the library is built with -fmad=false so no
 //    product is fused into an add the host kernel rounds separately.
 //
-// What bounds it on the H100: not bytes (an eye reads its image and f64
-// map and writes the eye once: 8.7 us at 1080p) but the latency of each
-// row's chain of sweep steps: ~5,700 parts per 1080p row, each depending on
-// the active list the one before left, and only ~8 rows per SM to overlap.
-// The design takes everything that does not depend on that list off the
-// chain and keeps the list in registers:
+// The host loop is a chain: each of a 1080p row's ~5,700 parts waits on
+// the active list the part before left.  The design breaks it:
 //  * polylines_sort (one CTA per row) replaces the serial insertion sort:
 //    a bitonic sort in shared memory on (x, point index), a total order and
 //    so exactly the stable order, ~80 parallel passes for a 1080p row.  It
@@ -30,19 +26,38 @@
 //    both ends' x and closeness, 1 / length (the sweep's ratio then takes
 //    two FMA corrections, not a division) and its end columns' colours, so
 //    the sweep follows no index and reads no image.
-//  * polylines_sweep (one warp per row, 4 rows per CTA, all rows resident):
-//    every lane runs the same step loop.  The sorted arrays are forward
-//    streams, a chunk of 32 entries one per lane, the next one prefetched,
-//    handed out by __shfl_sync.  Slot i of the active list lives in lane
-//    i % 32, in registers for the first 32 slots and in a per-row spill
-//    area beyond (a lane reads and writes only its own spill cells).  The
-//    removal is a ballot, and the swap-with-last order is its closed form:
-//    the k-th dead slot below the new length m takes the k-th live slot
-//    counted from the end.  The best segment is the first maximum of the
-//    closeness in list order: __reduce_max_sync on an order-preserving
-//    key, a ballot, __ffs; it is chosen on the layout before the removal's
-//    moves, by each slot's position after them, so it does not wait for
-//    the moves' shuffles.  Lane ch accumulates channel ch.
+//  * polylines_sweep (one CTA per row, a thread per column).  Why the
+//    choice is exact without the list: pushes take every segment that
+//    starts below the part's centre xc, removals every one that ends below
+//    it, and xc never falls along a row, so after a part's steps the active
+//    set is {x0 < xc <= x1}, whatever came before.  The host loop picks the
+//    only active segment, else the first greatest closeness among the
+//    candidates in list order, else the first on the list: the list's order
+//    matters only at a tie of the greatest closeness, or where two or more
+//    are active and none is a candidate.  So a thread finds each part of
+//    its column (a binary search for the first), and the part's live set
+//    in a window of the sorted starts: down from the last start below xc
+//    until top[] (the running maximum of the ends, a warp scan at the
+//    row's start, in the row's scratch) falls below xc.  Where the order
+//    decides, the thread rebuilds the list by the host loop's pushes and
+//    swap-with-last removals on indices, from the nearest earlier part
+//    whose live set held at most one segment (its list is that set) or
+//    the row's start, in 32 slots of the row's scratch.  A row with a
+//    point that is not finite, whose centres fall somewhere, or whose
+//    replay outgrows its slots runs the host loop whole on one thread.
+//    Each thread sums its column's colours in part order, so every f64
+//    operation is the host loop's.  The kernel counts its parts, the
+//    parts it replayed and the rows it ran whole.
+//
+// What bounds it on the H100: not bytes (an eye reads its image and f64
+// map and writes the eye once: 8.7 us at 1080p), nor f64 arithmetic.  The
+// row's set-up (top[]) takes ~0.07 ms of a ~0.22 ms smooth 1080p sweep;
+// the rest is each thread's chain of dependent steps per part (its
+// centre, push pointer, window, closeness, colours) with lanes of a warp
+// on columns of unequal part counts.  Prefetching the next columns' lines
+// into L2 did not help, so HBM latency is not what it waits on.  The
+// window holds ~1 entry on smooth maps and ~22 on random ones (every
+// pixel a depth of its own), where most of a random map's time goes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,8 +67,12 @@ namespace {
 constexpr int kMaxChannels = 4;
 constexpr double kEps = 1e-7;
 constexpr int kSortThreads = 512;
-constexpr int kSweepWarps = 4;       // rows per CTA of the sweep
+constexpr int kSweepThreads = 128;   // a CTA of the sweep: one row
+constexpr int kListSlots = 32;       // a thread's replay list
+constexpr int kSweepBlocks = 9;      // CTAs an SM holds: 1080 rows at once
+constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScan = 4;              // window entries loaded together
 
 int segments(int w, int sharp) { return sharp ? 2 * w + 1 : w + 1; }
 
@@ -66,6 +85,14 @@ int pow2_at_least(int n) {
 long long sort_bytes(int w, int sharp) {   // keys, idx, columns' x and |d|
     const long long p2 = pow2_at_least(segments(w, sharp));
     return (p2 * 12 + 16LL * w + 15) & ~15LL;
+}
+
+// the sweep's scratch per row, in ints: top[] (a float a segment), and the
+// replay lists (kListSlots a thread, and room for every segment)
+int sweep_top_len(int w, int sharp) { return (segments(w, sharp) + 3) & ~3; }
+int sweep_list_len(int w, int sharp) {
+    const int n = segments(w, sharp), all = kSweepThreads * kListSlots;
+    return ((n > all ? n : all) + 3) & ~3;
 }
 
 int max_dynamic_smem() {
@@ -186,31 +213,16 @@ polylines_sort(const uint8_t* __restrict__ image,
     if (threadIdx.x == 0) sx0[rb + n_seg] = 2.0 * w;
 }
 
-// one segment on the active list: y = 1 / (x1 - x0), rgb its end columns'
-// colours (as srgb), o its start point
-struct Seg {
-    double x0, x1, d0, d1, y;
-    unsigned long long rgb;
-    int o;
-};
-constexpr int kSegWords = 7;   // a spilled slot: one 64-bit word a field
-
-__device__ __forceinline__ Seg shfl_seg(const Seg& s, int src) {
-    return Seg{__shfl_sync(kFull, s.x0, src), __shfl_sync(kFull, s.x1, src),
-               __shfl_sync(kFull, s.d0, src), __shfl_sync(kFull, s.d1, src),
-               __shfl_sync(kFull, s.y, src), __shfl_sync(kFull, s.rgb, src),
-               __shfl_sync(kFull, s.o, src)};
-}
-
 // (xc - x0) / (x1 - x0), correctly rounded, from y = RN(1 / (x1 - x0)):
 // one correction makes the quotient faithful, a second rounds it correctly
 // (Markstein's theorem; no operand here is near under- or overflow).  Two
 // FMAs each, against a ~110-cycle division.
-__device__ __forceinline__ double ratio(double xc, const Seg& s) {
-    const double num = xc - s.x0, den = s.x1 - s.x0;
-    const double q0 = num * s.y;
-    const double q1 = fma(fma(-den, q0, num), s.y, q0);
-    return fma(fma(-den, q1, num), s.y, q1);
+__device__ __forceinline__ double ratio(double xc, double x0, double x1,
+                                        double y) {
+    const double num = xc - x0, den = x1 - x0;
+    const double q0 = num * y;
+    const double q1 = fma(fma(-den, q0, num), y, q0);
+    return fma(fma(-den, q1, num), y, q1);
 }
 
 // an image byte as f64 (exact: 2^52 + v - 2^52), one add instead of a
@@ -219,304 +231,386 @@ __device__ __forceinline__ double byte_f64(uint8_t v) {
     return __hiloint2double(0x43300000, v) - 4503599627370496.0;
 }
 
-// the bit position of the (k+1)-th highest / lowest set bit of x (x has
-// more than k set bits), by binary search on the count above a position
-__device__ __forceinline__ int kth_highest(unsigned x, int k) {
-    int p = 0;
-#pragma unroll
-    for (int step = 16; step > 0; step >>= 1)
-        if (__popc(x >> (p + step)) > k) p += step;
+// One row of polylines_sort's arrays, and the sweep's scratch for it.
+struct Row {
+    const double *pts, *x1, *d0, *d1, *y;   // pts: the starts, then 2w
+    const unsigned long long* rgb;
+    const int* o;
+    const float* top;   // top[s] >= max(x1[0..s]): f32, rounded up
+    int n_seg;
+};
+
+// the part of column col between sorted points j and j + 1: its centre,
+// and its width in *sig (the host loop's operations)
+__device__ __forceinline__ double centre(const Row& R, int col, int j,
+                                         double* sig) {
+    const double a = R.pts[j], b = R.pts[j + 1];
+    const double colf = col, top = colf + 1;
+    const double coord_from = (colf < a ? a : colf) + kEps;
+    const double coord_to = (b < top ? b : top) - kEps;
+    *sig = coord_to - coord_from;
+    return coord_from + 0.5 * *sig;
+}
+
+// the last sorted point below x, which starts the first part of column x
+// (pts[0] = -w lies below every column, pts[n_seg] = 2w above)
+__device__ int last_below(const Row& R, double x) {
+    int lo = 0, hi = R.n_seg;
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (R.pts[mid] < x)
+            lo = mid;
+        else
+            hi = mid;
+    }
+    return lo;
+}
+
+// how many segments start below xc (the host loop's push pointer there),
+// searched from part j's end: pts[j] < xc < pts[j + 1] but for ties
+__device__ __forceinline__ int pushed(const Row& R, int j, double xc) {
+    int p = j + 1 < R.n_seg ? j + 1 : R.n_seg;
+    while (p < R.n_seg && R.pts[p] < xc) ++p;
+    while (p > 0 && !(R.pts[p - 1] < xc)) --p;
     return p;
 }
-__device__ __forceinline__ int kth_lowest(unsigned x, int k) {
-    return 31 - kth_highest(__brev(x), k);
+
+// segment s's position ip at xc, from the sort's reciprocal
+__device__ __forceinline__ double position(const Row& R, int s, double xc) {
+    return ratio(xc, R.pts[s], R.x1[s], R.y[s]);
 }
 
-// lanes below n (n may lie outside 0..32)
-__device__ __forceinline__ unsigned lanes_below(int n) {
-    return n <= 0 ? 0u : (n >= 32 ? kFull : (1u << n) - 1u);
+// segment s's closeness at position ip
+__device__ __forceinline__ double closeness(const Row& R, int s, double ip) {
+    return (1.0 - ip) * R.d0[s] + ip * R.d1[s];
 }
 
-// Stage B: one warp per row.  spill (rows, kSegWords, spill) holds the
-// active slots 32 and above.
-__global__ void __launch_bounds__(kSweepWarps * 32)
+// The live segments at xc (x0 < xc <= x1): among the first p, scanned
+// down from p - 1 until top[] says that no segment below reaches xc, the
+// ends and bounds of kScan entries loaded together.  How many are live
+// (n_live, one of them in live) and, among the candidates (closeness
+// above -kEps, xc strictly inside), the greatest closeness's key, how many
+// reach it (n_top) and one that does (best).
+struct Window {
+    int n_live, live, n_top, best;
+};
+__device__ Window window(const Row& R, int p, double xc) {
+    Window v{0, -1, 0, -1};
+    unsigned long long kmax = 0;   // a candidate's key is never 0
+    for (int s = p - 1; s >= 0; s -= kScan) {
+        float bound[kScan];
+        double end[kScan];
+#pragma unroll
+        for (int k = 0; k < kScan; ++k) {
+            const int q = s - k > 0 ? s - k : 0;
+            bound[k] = R.top[q];
+            end[k] = R.x1[q];
+        }
+        unsigned live = 0;
+        bool done = false;
+#pragma unroll
+        for (int k = 0; k < kScan; ++k) {
+            done = done || s - k < 0 || (double)bound[k] < xc;
+            if (!done && !(end[k] < xc)) live |= 1u << k;
+        }
+        for (; live; live &= live - 1) {
+            const int q = s - (__ffs(live) - 1);
+            ++v.n_live;
+            v.live = q;
+            const double ip = position(R, q, xc);
+            const double cl = closeness(R, q, ip);
+            if (cl > -kEps && 0.0 < ip && ip < 1.0) {
+                const unsigned long long key = okey(cl + 0.0);   // -0 as +0
+                if (key > kmax) {
+                    kmax = key;
+                    v.n_top = 1;
+                    v.best = q;
+                } else if (key == kmax) {
+                    ++v.n_top;
+                }
+            }
+        }
+        if (done) break;
+    }
+    return v;
+}
+
+// the host loop's choice on its active list: the only segment, else the
+// first greatest closeness among the candidates in list order, else the
+// first on the list (-1: an empty list)
+__device__ int list_choice(const Row& R, const int* list, int n, double xc) {
+    int best = n > 0 ? list[0] : -1;
+    if (n != 1) {
+        double top = -kEps;
+        for (int i = 0; i < n; ++i) {
+            const double ip = position(R, list[i], xc);
+            const double cl = closeness(R, list[i], ip);
+            if (top < cl && 0.0 < ip && ip < 1.0) {
+                top = cl;
+                best = list[i];
+            }
+        }
+    }
+    return best;
+}
+
+// the host loop's push (segments starting below xc, in sorted order) and
+// swap-with-last removal (segments ending below xc), on indices alone;
+// false when the list would outgrow cap
+__device__ __forceinline__ bool step_list(const Row& R, int* list, int& n,
+                                          int& ptr, int cap, double xc) {
+    while (ptr < R.n_seg && R.pts[ptr] < xc) {
+        if (n == cap) return false;
+        list[n++] = ptr++;
+    }
+    for (int i = 0; i < n;) {
+        if (R.x1[list[i]] < xc)
+            list[i] = list[--n];
+        else
+            ++i;
+    }
+    return true;
+}
+
+constexpr int kOverflow = -2;
+
+// The choice at part (col, j) whose window left it to the list's order (a
+// tie at the top, or two or more live and no candidate).  The list is
+// rebuilt from the nearest earlier part whose live set held at most one
+// segment, whose list is that set, or from the row's start, by the host
+// loop's steps on indices; then the host's choice.  kOverflow when the
+// list would outgrow cap.
+__device__ int replay(const Row& R, int col, int j, double xc, int* list,
+                      int cap) {
+    int qc = col, qj = j, n = 0, ptr = 0;
+    double sig;
+    for (;;) {   // the previous part, until an anchor or the row's start
+        if (!(R.pts[qj] < qc) && qj > 0)
+            --qj;
+        else if (--qc < 0)
+            break;
+        const double xq = centre(R, qc, qj, &sig);
+        const int pq = pushed(R, qj, xq);
+        const Window v = window(R, pq, xq);
+        if (v.n_live <= 1) {
+            n = v.n_live;
+            list[0] = v.live;
+            ptr = pq;
+            break;
+        }
+    }
+    bool at_start = qc < 0;
+    if (at_start) {
+        qc = 0;
+        qj = last_below(R, 0.0);
+    }
+    for (;;) {   // forward to (col, j), as the host loop steps
+        if (!at_start) {
+            if (R.pts[qj + 1] < qc + 1.0)
+                ++qj;
+            else
+                ++qc;
+        }
+        at_start = false;
+        if (qc > col) return kOverflow;   // not on the walk: redo the row
+        if (!step_list(R, list, n, ptr, cap, centre(R, qc, qj, &sig)))
+            return kOverflow;
+        if (qc == col && qj == j) break;
+    }
+    return list_choice(R, list, n, xc);
+}
+
+// the chosen segment's colour over a part of width sig, added to the
+// column's channels
+__device__ __forceinline__ void add_part(const Row& R, int best, double xc,
+                                         double sig, int c, int n_pt,
+                                         bool single, double* color) {
+    const unsigned long long rgb = R.rgb[best];
+    const int o = R.o[best];
+    // the start and end columns are the same one for the sentinels'
+    // segments and (sharp) a pixel's own segment
+    if (o == 0 || o == n_pt - 2 || (!single && (o & 1))) {
+#pragma unroll
+        for (int ch = 0; ch < kMaxChannels; ++ch)
+            if (ch < c)
+                color[ch] += byte_f64((uint8_t)(rgb >> (8 * ch))) * sig;
+    } else {
+        const double ip = position(R, best, xc);
+#pragma unroll
+        for (int ch = 0; ch < kMaxChannels; ++ch)
+            if (ch < c) {
+                const double vl = byte_f64((uint8_t)(rgb >> (8 * ch)));
+                const double vr = byte_f64((uint8_t)(rgb >> (8 * ch + 32)));
+                color[ch] += (vl * (1.0 - ip) + vr * ip) * sig;
+            }
+    }
+}
+
+__device__ __forceinline__ void put_column(uint8_t* orow, int col, int c,
+                                           const double* color) {
+#pragma unroll
+    for (int ch = 0; ch < kMaxChannels; ++ch)
+        if (ch < c) {
+            const double v = color[ch];
+            orow[col * c + ch] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+        }
+}
+
+// The host loop itself, on one thread, the active list in the row's list
+// area (room for every segment): for a row with a point that is not
+// finite, whose part centres fall somewhere (the window's rule holds where
+// they never fall), or where a replay outgrew its slots.  Returns the
+// row's parts.
+__device__ unsigned long long whole_row(const Row& R, uint8_t* orow,
+                                        int* list, int w, int c, int n_pt,
+                                        bool single) {
+    unsigned long long parts = 0;
+    int pt = 0, ptr = 0, n = 0;
+    for (int col = 0; col < w; ++col) {
+        double color[kMaxChannels] = {0.5, 0.5, 0.5, 0.5};
+        while (pt < R.n_seg && R.pts[pt] < col) ++pt;
+        if (pt > 0) --pt;
+        while (pt < R.n_seg && R.pts[pt] < col + 1.0) {
+            double sig;
+            const double xc = centre(R, col, pt, &sig);
+            ++parts;
+            step_list(R, list, n, ptr, R.n_seg, xc);
+            const int best = list_choice(R, list, n, xc);
+            if (best >= 0)
+                add_part(R, best, xc, sig, c, n_pt, single, color);
+            ++pt;
+        }
+        put_column(orow, col, c, color);
+    }
+    return parts;
+}
+
+// The sweep's counters on each card, in the module's own device memory
+// (not an allocation of the caller's): parts swept, parts whose choice was
+// replayed from the list's order, rows run whole by whole_row.
+__device__ unsigned long long g_sweep_counts[3];
+
+// Stage B: one CTA per row, a thread per column (col = thread, + the CTA's
+// width, ...).  scratch (rows, top_len + list_len) ints: the running
+// maximum of the ends (f32) and the replay lists (kListSlots a thread, or
+// the whole area for a whole row).  g_sweep_counts += (parts, parts
+// replayed, rows replayed whole).
+__global__ void __launch_bounds__(kSweepThreads, kSweepBlocks)
 polylines_sweep(uint8_t* __restrict__ out, const double* __restrict__ sx0,
                 const double* __restrict__ sx1, const double* __restrict__ sd0,
                 const double* __restrict__ sd1, const double* __restrict__ srcp,
                 const unsigned long long* __restrict__ srgb,
-                const int* __restrict__ sorder,
-                unsigned long long* __restrict__ spill_words, int rows, int w,
-                int c, int sharp, int stride, int spill) {
-    const int lane = threadIdx.x & 31;
-    const int r = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
-    if (r >= rows) return;
+                const int* __restrict__ sorder, int* __restrict__ scratch,
+                int w, int c, int sharp, int stride, int top_len,
+                int list_len) {
+    __shared__ double warp_top[kSweepWarps];
+    __shared__ int s_whole;
+    __shared__ unsigned long long s_parts, s_replayed;
+    const int tid = threadIdx.x;
+    const int r = blockIdx.x;
     const bool single = !sharp;
     const int n_pt = single ? w + 2 : 2 * w + 2;
     const int n_seg = n_pt - 1;
-    uint8_t* orow = out + (size_t)r * w * c;
     const size_t rb = (size_t)r * stride;
-    const double* X0 = sx0 + rb;
-    const double* X1 = sx1 + rb;
-    const double* D0 = sd0 + rb;
-    const double* D1 = sd1 + rb;
-    const double* Y = srcp + rb;
-    const unsigned long long* RGB = srgb + rb;
-    const int* OR = sorder + rb;
-    unsigned long long* sp = spill_words + (size_t)r * kSegWords * spill;
+    int* area = scratch + (size_t)r * (top_len + list_len);
+    float* top = (float*)area;
+    int* list = area + top_len;
+    const Row R{sx0 + rb,  sx1 + rb,    sd0 + rb, sd1 + rb, srcp + rb,
+                srgb + rb, sorder + rb, top,      n_seg};
+    uint8_t* orow = out + (size_t)r * w * c;
+    if (tid == 0) {
+        s_whole = 0;
+        s_parts = 0;
+        s_replayed = 0;
+    }
 
-    // this lane's slot of group g (slots 32g .. 32g + 31), and its update:
-    // group 0 in registers, the others spilled (g may differ by lane; a
-    // spilled slot is read and written only by its own lane)
-    Seg reg{0.0, 0.0, 0.0, 0.0, 0.0, 0, 0};
-    auto get = [&](int g) -> Seg {
-        if (g == 0) return reg;
-        const unsigned long long* e = sp + (g - 1) * 32 + lane;
-        return Seg{__longlong_as_double(e[0]), __longlong_as_double(e[spill]),
-                   __longlong_as_double(e[2 * spill]),
-                   __longlong_as_double(e[3 * spill]),
-                   __longlong_as_double(e[4 * spill]), e[5 * spill],
-                   (int)e[6 * spill]};
-    };
-    auto put = [&](int g, const Seg& s) {
-        if (g == 0) {
-            reg = s;
-            return;
+    // top[]: the running maximum of the ends.  Each warp takes a quarter
+    // of the row, 32 entries at a time across its lanes: its maximum
+    // first, then a scan by shuffles from the maxima of the quarters
+    // before.  A point that is not finite sends the row to whole_row.
+    const int lane = tid & 31, warp = tid >> 5;
+    const int span = ((n_seg + kSweepWarps - 1) / kSweepWarps + 31) & ~31;
+    const int lo = min(warp * span, n_seg), hi = min(lo + span, n_seg);
+    double run = -INFINITY;
+    bool finite = true;
+    for (int s = lo + lane; s < hi; s += 32) {
+        const double x1 = R.x1[s];
+        finite = finite && isfinite(x1);
+        run = x1 > run ? x1 : run;
+    }
+    for (int d = 16; d > 0; d >>= 1) {
+        const double u = __shfl_xor_sync(kFull, run, d);
+        run = u > run ? u : run;
+    }
+    if (lane == 0) warp_top[warp] = run;
+    __syncthreads();
+    run = -INFINITY;
+    for (int k = 0; k < warp; ++k) run = warp_top[k] > run ? warp_top[k] : run;
+    for (int base = lo; base < hi; base += 32) {
+        const int q = base + lane;
+        double v = q < hi ? R.x1[q] : -INFINITY;
+        for (int d = 1; d < 32; d <<= 1) {
+            const double u = __shfl_up_sync(kFull, v, d);
+            if (lane >= d && u > v) v = u;
         }
-        unsigned long long* e = sp + (g - 1) * 32 + lane;
-        e[0] = __double_as_longlong(s.x0);
-        e[spill] = __double_as_longlong(s.x1);
-        e[2 * spill] = __double_as_longlong(s.d0);
-        e[3 * spill] = __double_as_longlong(s.d1);
-        e[4 * spill] = __double_as_longlong(s.y);
-        e[5 * spill] = s.rgb;
-        e[6 * spill] = (unsigned long long)s.o;
-    };
+        v = run > v ? run : v;
+        run = __shfl_sync(kFull, v, 31);
+        if (q >= hi) continue;
+        top[q] = __double2float_ru(v);
+        finite = finite && isfinite(R.pts[q]);
+    }
+    const bool whole = __syncthreads_or(!finite);
 
-    // the sorted points, read forward: pts[i] for i = 0, 1, 2, ...
-    int p_base = 0;
-    double p_cur = X0[lane];
-    double p_nxt = 32 + lane < stride ? X0[32 + lane] : 0.0;
-    auto pts = [&](int i) -> double {
-        if (i >= p_base + 32) {
-            p_base += 32;
-            p_cur = p_nxt;
-            const int e = p_base + 32 + lane;
-            p_nxt = e < stride ? X0[e] : 0.0;
-        }
-        return __shfl_sync(kFull, p_cur, i - p_base);
-    };
-    // the sorted segments, read forward by the push pointer
-    auto load_seg = [&](int e) -> Seg {
-        return e < stride
-                   ? Seg{X0[e], X1[e], D0[e], D1[e], Y[e], RGB[e], OR[e]}
-                   : Seg{0.0, 0.0, 0.0, 0.0, 0.0, 0, 0};
-    };
-    int s_base = 0;
-    Seg s_cur = load_seg(lane);
-    Seg s_nxt = load_seg(32 + lane);
-    int sg_pointer = 0;
-    double next_x0 = __shfl_sync(kFull, s_cur.x0, 0);
-
-    int n_active = 0;
-    // consecutive sorted points a, b, and the one after (read a part ahead)
-    double a = pts(0), b = pts(1), nb = pts(2);
-    int pj = 2;
-    double color = 0.5;   // lane ch < c: channel ch of the column
-    const int shift = 8 * (lane < c ? lane : 0);
-    for (int col = 0; col < w; ++col) {
-        const double colf = col, top = colf + 1;
-        while (b < colf) {
-            a = b;
-            b = nb;
-            nb = pts(++pj);
-        }
+    // each part's choice from its window; the list's order only where the
+    // choice depends on it
+    unsigned long long parts = 0, replayed = 0;
+    bool redo = whole;
+    int* mine = list + tid * kListSlots;
+    for (int col = tid; col < w && !redo; col += kSweepThreads) {
+        int j = last_below(R, col);
+        double sig;
+        // the centres never fall: the last part of column col - 1 is the
+        // one from the same point j
+        double prev = col > 0 ? centre(R, col - 1, j, &sig) : -INFINITY;
+        double color[kMaxChannels] = {0.5, 0.5, 0.5, 0.5};
         for (;;) {
-            // the part [max(col, a), min(col + 1, b)] and its centre
-            const double coord_from = (colf < a ? a : colf) + kEps;
-            const double coord_to = (b < top ? b : top) - kEps;
-            const double significance = coord_to - coord_from;
-            const double xc = coord_from + 0.5 * significance;
-
-            // push the segments that start before xc
-            while (sg_pointer < n_seg && next_x0 < xc) {
-                const int i = sg_pointer - s_base;
-                const Seg s = shfl_seg(s_cur, i);
-                next_x0 = __shfl_sync(kFull, i < 31 ? s_cur.x0 : s_nxt.x0,
-                                      (i + 1) & 31);
-                if (lane == (n_active & 31)) put(n_active >> 5, s);
-                ++n_active;
-                if (++sg_pointer == s_base + 32) {
-                    s_base += 32;
-                    s_cur = s_nxt;
-                    s_nxt = load_seg(s_base + 32 + lane);
+            const double xc = centre(R, col, j, &sig);
+            ++parts;
+            if (xc < prev) {
+                redo = true;
+                break;
+            }
+            prev = xc;
+            const Window v = window(R, pushed(R, j, xc), xc);
+            int best = v.n_live <= 1 ? v.live : v.best;
+            if (v.n_live > 1 && v.n_top != 1) {
+                ++replayed;
+                best = replay(R, col, j, xc, mine, kListSlots);
+                if (best == kOverflow) {
+                    redo = true;
+                    break;
                 }
             }
-
-            // the closest segment's ip and start point (uniform)
-            double best_ip = 0.0;
-            int best_o = -1;
-            unsigned long long best_rgb = 0;
-            if (n_active <= 32) {
-                // every slot in reg.  The removal (swap-with-last) moves
-                // the k-th live slot from the end into the k-th dead slot
-                // below the new length m.  The best segment is chosen on the
-                // layout before that move, by its position after it, so the
-                // choice does not wait for the move's shuffles.
-                Seg& s0 = reg;
-                const bool live = lane < n_active && !(s0.x1 < xc);
-                const unsigned alive = __ballot_sync(kFull, live);
-                const int m = __popc(alive);
-                const unsigned front = lanes_below(m);
-                const unsigned holes = ~alive & front;
-                const unsigned srcs = alive & ~front;
-                const bool hole = (holes >> lane) & 1u;
-                const double ipl = ratio(xc, s0);
-                const double cl = (1.0 - ipl) * s0.d0 + ipl * s0.d1;
-                const bool cand = live && cl > -kEps && 0.0 < ipl && ipl < 1.0;
-                if (m > 0) {
-                    // the slot at position 0 after the move: lane 0, or the
-                    // last live slot when lane 0 died
-                    int bl = (alive & 1u) ? 0 : 31 - __clz(alive);
-                    if (m > 1) {
-                        // first maximum: the key's high word, then on a tie
-                        // its low word (a candidate's closeness is never
-                        // -0.0, so equal keys are equal values)
-                        const unsigned long long key = cand ? okey(cl) : 0;
-                        const unsigned khi = (unsigned)(key >> 32);
-                        const unsigned hi = __reduce_max_sync(kFull, khi);
-                        unsigned hit = __ballot_sync(kFull, cand && khi == hi);
-                        if (__popc(hit) > 1) {
-                            bool tie = (hit >> lane) & 1u;
-                            const unsigned lo = __reduce_max_sync(
-                                kFull, tie ? (unsigned)key : 0u);
-                            tie = tie && (unsigned)key == lo;
-                            // the lowest position after the move
-                            const int above =
-                                __popc(srcs & ~lanes_below(lane + 1));
-                            const int pos =
-                                lane < m ? lane : kth_lowest(holes, above);
-                            const unsigned first = __reduce_min_sync(
-                                kFull, tie ? (unsigned)pos : 32u);
-                            hit = __ballot_sync(kFull,
-                                                tie && pos == (int)first);
-                        }
-                        if (hit) bl = __ffs(hit) - 1;
-                    }
-                    best_ip = __shfl_sync(kFull, ipl, bl);
-                    best_o = __shfl_sync(kFull, s0.o, bl);
-                    best_rgb = __shfl_sync(kFull, s0.rgb, bl);
-                }
-                if (holes) {
-                    // the k-th hole takes the k-th live slot from the end
-                    int src = lane;
-                    if (hole) {
-                        unsigned from = srcs;
-                        for (int k = __popc(holes & lanes_below(lane)); k > 0;
-                             --k)
-                            from &= ~(1u << (31 - __clz(from)));
-                        src = 31 - __clz(from);
-                    }
-                    const Seg moved = shfl_seg(s0, src);
-                    if (hole) s0 = moved;
-                }
-                n_active = m;
-            } else {
-                // more than 32 slots: the same removal and choice, group by
-                // group, the removal's moves one at a time
-                int ng = (n_active + 31) >> 5;
-                auto alive_mask = [&](int g) -> unsigned {
-                    return __ballot_sync(kFull, 32 * g + lane < n_active &&
-                                                    !(get(g).x1 < xc));
-                };
-                int m = 0;
-                for (int g = 0; g < ng; ++g) m += __popc(alive_mask(g));
-                if (m < n_active) {
-                    int hg = -1, sgp = ng;
-                    unsigned holes = 0, srcs = 0;
-                    for (;;) {
-                        while (holes == 0 && 32 * (hg + 1) < m) {
-                            ++hg;
-                            holes = ~alive_mask(hg) & lanes_below(m - 32 * hg);
-                        }
-                        if (holes == 0) break;
-                        while (srcs == 0) {
-                            --sgp;
-                            srcs = alive_mask(sgp) & ~lanes_below(m - 32 * sgp);
-                        }
-                        const int p = 32 * hg + __ffs(holes) - 1;
-                        holes &= holes - 1;
-                        const int qb = 31 - __clz(srcs);
-                        srcs &= ~(1u << qb);
-                        const Seg s = shfl_seg(get(sgp), qb);
-                        if (lane == (p & 31)) put(p >> 5, s);
-                    }
-                    n_active = m;
-                    ng = (m + 31) >> 5;
-                }
-                if (n_active > 0) {
-                    // this lane's slot of group g: its ratio, the key of its
-                    // closeness, and whether it is a candidate
-                    auto closeness = [&](int g, double& ip,
-                                         unsigned long long& key) -> bool {
-                        const Seg s = get(g);
-                        ip = ratio(xc, s);
-                        const double cl = (1.0 - ip) * s.d0 + ip * s.d1;
-                        key = okey(cl);
-                        return 32 * g + lane < n_active && cl > -kEps &&
-                               0.0 < ip && ip < 1.0;
-                    };
-                    double ip;
-                    unsigned long long key, kmax = 0;
-                    for (int g = 0; g < ng; ++g)
-                        if (closeness(g, ip, key) && key > kmax) kmax = key;
-                    int best = 0;
-                    const unsigned hi =
-                        __reduce_max_sync(kFull, (unsigned)(kmax >> 32));
-                    const unsigned lo = __reduce_max_sync(
-                        kFull,
-                        (unsigned)(kmax >> 32) == hi ? (unsigned)kmax : 0u);
-                    const unsigned long long top =
-                        (unsigned long long)hi << 32 | lo;
-                    for (int g = 0; top != 0 && g < ng; ++g) {
-                        const bool cand = closeness(g, ip, key);
-                        const unsigned hit =
-                            __ballot_sync(kFull, cand && key == top);
-                        if (hit) {
-                            best = 32 * g + __ffs(hit) - 1;
-                            break;
-                        }
-                    }
-                    // its ip and start point, from the lane that holds it
-                    closeness(best >> 5, ip, key);
-                    const Seg s = get(best >> 5);
-                    best_ip = __shfl_sync(kFull, ip, best & 31);
-                    best_o = __shfl_sync(kFull, s.o, best & 31);
-                    best_rgb = __shfl_sync(kFull, s.rgb, best & 31);
-                }
-            }
-            if (best_o >= 0) {
-                // the start and end columns are the same one for the
-                // sentinels' segments and (sharp) a pixel's own segment
-                const double vl = byte_f64((uint8_t)(best_rgb >> shift));
-                if (best_o == 0 || best_o == n_pt - 2 ||
-                    (!single && (best_o & 1))) {
-                    color += vl * significance;
-                } else {
-                    const double vr =
-                        byte_f64((uint8_t)(best_rgb >> (shift + 32)));
-                    color += (vl * (1.0 - best_ip) + vr * best_ip) *
-                             significance;
-                }
-            }
-            if (!(b < top)) break;
-            a = b;
-            b = nb;
-            nb = pts(++pj);
+            if (best >= 0)
+                add_part(R, best, xc, sig, c, n_pt, single, color);
+            if (!(R.pts[j + 1] < col + 1.0)) break;
+            ++j;
         }
-        if (lane < c)
-            orow[col * c + lane] =
-                (uint8_t)(color < 0 ? 0 : (color > 255 ? 255 : color));
-        color = 0.5;
+        if (!redo) put_column(orow, col, c, color);
+    }
+    if (redo) s_whole = 1;
+    atomicAdd(&s_parts, parts);
+    if (replayed) atomicAdd(&s_replayed, replayed);
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long p = s_parts, q = s_replayed;
+        if (s_whole) {
+            p = whole_row(R, orow, list, w, c, n_pt, single);
+            q = 0;
+            atomicAdd(&g_sweep_counts[2], 1ULL);
+        }
+        atomicAdd(&g_sweep_counts[0], p);
+        if (q) atomicAdd(&g_sweep_counts[1], q);
     }
 }
 
@@ -531,10 +625,10 @@ long long polylines_sort_scratch_bytes(int w, int sharp) {
     return need <= max_dynamic_smem() ? 0 : need;
 }
 
-// Active slots per row that polylines_sweep may spill beyond its registers.
-int polylines_spill_slots(int w, int sharp) {
-    const int groups = (segments(w, sharp) + 31) / 32 - 1;   // after reg
-    return 32 * (groups > 1 ? groups : 1);
+// Ints of device scratch per row that polylines_sweep needs: the running
+// maximum of the ends (f32), then the replay lists.
+int polylines_sweep_scratch_ints(int w, int sharp) {
+    return sweep_top_len(w, sharp) + sweep_list_len(w, sharp);
 }
 
 // Stage A.  image (rows, w, c) uint8, ep = nd^exponent (rows, w) f64
@@ -570,25 +664,39 @@ int polylines_sort_forward(const void* image, const void* ep, void* sorted,
     return (int)cudaGetLastError();
 }
 
-// Stage B.  out (rows, w, c) uint8; sorted, rgb, order from stage A; spill
-// (rows, 7, spill) uint64 with spill = polylines_spill_slots.  Returns a
-// cudaError_t.
+// Stage B.  out (rows, w, c) uint8; sorted, rgb, order from stage A;
+// scratch (rows, polylines_sweep_scratch_ints) int.  Returns a cudaError_t.
 int polylines_sweep_forward(void* out, const void* sorted, const void* rgb,
-                            const void* order, void* spill, int rows, int w,
-                            int c, int stride, int spill_slots, int sharp,
+                            const void* order, void* scratch,
+                            int rows, int w, int c, int stride, int sharp,
                             void* stream) {
     if (rows < 1 || w < 1 || c < 1 || c > kMaxChannels ||
-        stride < segments(w, sharp) + 1 ||
-        spill_slots < polylines_spill_slots(w, sharp))
+        stride < segments(w, sharp) + 1)
         return (int)cudaErrorInvalidValue;
     const double* s = (const double*)sorted;
     const size_t plane = (size_t)rows * stride;
-    const int blocks = (rows + kSweepWarps - 1) / kSweepWarps;
-    polylines_sweep<<<blocks, kSweepWarps * 32, 0, (cudaStream_t)stream>>>(
+    polylines_sweep<<<rows, kSweepThreads, 0, (cudaStream_t)stream>>>(
         (uint8_t*)out, s, s + plane, s + 2 * plane, s + 3 * plane,
         s + 4 * plane, (const unsigned long long*)rgb, (const int*)order,
-        (unsigned long long*)spill, rows, w, c, sharp, stride, spill_slots);
+        (int*)scratch, w, c, sharp, stride,
+        sweep_top_len(w, sharp), sweep_list_len(w, sharp));
     return (int)cudaGetLastError();
+}
+
+// The sweep's counters on card device, added into out[0..2], or (reset)
+// set to 0, once the card has finished its work.  Returns a cudaError_t.
+int polylines_sweep_counts(int device, unsigned long long* out, int reset) {
+    int old = 0;
+    cudaError_t e = cudaGetDevice(&old);
+    if (e == cudaSuccess) e = cudaSetDevice(device);
+    if (e == cudaSuccess) e = cudaDeviceSynchronize();
+    if (e != cudaSuccess) return (int)e;
+    unsigned long long v[3] = {0, 0, 0};
+    e = reset ? cudaMemcpyToSymbol(g_sweep_counts, v, sizeof v)
+              : cudaMemcpyFromSymbol(v, g_sweep_counts, sizeof v);
+    for (int k = 0; k < 3 && out; ++k) out[k] += v[k];
+    const cudaError_t back = cudaSetDevice(old);
+    return (int)(e != cudaSuccess ? e : back);
 }
 
 const char* polylines_error_string(int err) {

@@ -209,14 +209,16 @@ def _lib():
         ci, cd = ctypes.c_int, ctypes.c_double
         lib.polylines_sort_scratch_bytes.argtypes = [ci, ci]
         lib.polylines_sort_scratch_bytes.restype = ctypes.c_longlong
-        lib.polylines_spill_slots.argtypes = [ci, ci]
-        lib.polylines_spill_slots.restype = ci
+        lib.polylines_sweep_scratch_ints.argtypes = [ci, ci]
+        lib.polylines_sweep_scratch_ints.restype = ci
         lib.polylines_sort_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                                ci, ci, cd, cd, ci, vp]
         lib.polylines_sort_forward.restype = ci
         lib.polylines_sweep_forward.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                                ci, ci, ci, vp]
+                                                ci, ci, vp]
         lib.polylines_sweep_forward.restype = ci
+        lib.polylines_sweep_counts.argtypes = [ci, vp, ci]
+        lib.polylines_sweep_counts.restype = ci
         lib.polylines_error_string.argtypes = [ci]
         lib.polylines_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -270,29 +272,55 @@ def _sweep_cuda(sorted_: torch.Tensor, rgb: torch.Tensor,
                 order: torch.Tensor, w: int, ch: int,
                 sharp: bool) -> torch.Tensor:
     """Stage B of the kernel on stage A's arrays -> the eye (R, W, C)
-    uint8.  Its spill area has room for every segment of a row on the
-    active list, so no input outgrows it (a smaller one sized from a
-    bound needs an overflow check and a host sync per call; PERF.md has
-    what that cost)."""
+    uint8.  Its scratch holds a row's running maximum of the segment ends
+    and the replay lists; it adds to the card's counters
+    (``replay_counts``) without a sync."""
     rows, stride = order.shape
     dev = order.device
     lib = _lib()
-    spill = lib.polylines_spill_slots(w, int(bool(sharp)))
-    # a spilled slot is 7 words (Seg in csrc/polylines.cu)
-    spill_words = torch.empty((rows, 7, spill), dtype=torch.int64,
-                              device=dev)
+    scratch = torch.empty(
+        (rows, lib.polylines_sweep_scratch_ints(w, int(bool(sharp)))),
+        dtype=torch.int32, device=dev)
     out = torch.empty((rows, w, ch), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise_on(lib, lib.polylines_sweep_forward(
             out.data_ptr(), sorted_.data_ptr(), rgb.data_ptr(),
-            order.data_ptr(), spill_words.data_ptr(), rows, w, ch, stride,
-            spill, int(bool(sharp)), stream))
+            order.data_ptr(), scratch.data_ptr(), rows, w, ch, stride,
+            int(bool(sharp)), stream))
     _sweep_cuda.launches += 1
+    _swept.add(dev.index)
     return out
 
 
 _sweep_cuda.launches = 0
+
+# The sweep's counters, kept on each card in the kernel's module: the
+# sub-pixel parts it swept, the parts whose choice it replayed from the
+# active list's order (a tie of the greatest closeness, or no candidate
+# among two or more live segments), and the rows it ran whole through the
+# host loop (a point that is not finite, or a replay that outgrew its
+# list).  _swept: the cards a sweep ran on.
+REPLAY_FIELDS = ("parts", "parts_replayed", "rows_whole")
+_swept: set = set()
+
+
+def _sweep_counts(reset: bool) -> list:
+    total = (ctypes.c_ulonglong * len(REPLAY_FIELDS))()
+    for index in sorted(_swept):
+        lib = _lib()
+        _raise_on(lib, lib.polylines_sweep_counts(index, total, int(reset)))
+    return list(total)
+
+
+def replay_counts() -> dict:
+    """The sweep's counters summed over the cards since the last
+    ``reset_replay_counts`` (reading them waits for each card)."""
+    return dict(zip(REPLAY_FIELDS, _sweep_counts(False)))
+
+
+def reset_replay_counts() -> None:
+    _sweep_counts(True)
 
 
 def polylines_cuda(image: torch.Tensor, nd: torch.Tensor,

@@ -266,8 +266,9 @@ def _depth(kind: str, rows: int, w: int, seed: int) -> np.ndarray:
 
 
 # case: (rows, w, channels, depth, divergence_px, separation_px, exponent,
-# sharp).  over_32 and over_64 hold more active segments than a lane
-# holds in registers (the spill slots); wide_sort sorts in device scratch
+# sharp).  over_32 and over_64 hold more than 32 and 64 live segments at
+# a part (long windows; a replay there would outgrow a thread's list of 32
+# and run its row whole); wide_sort sorts in device scratch
 # (its points do not fit in shared memory); nd_beyond_1 moves points up to
 # 90x further than |divergence| (hundreds of active segments).
 K2_CASES = {
@@ -463,6 +464,79 @@ def test_polylines_sweep_stage_breaks_ties_as_the_host_loop(sharp, span):
                         torch.from_numpy(rgb).cuda(),
                         torch.from_numpy(order).cuda(), w, ch, sharp)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _sweep_parts(img, nd, div, sharp):
+    """How many sub-pixel parts the sweep steps through: a row's parts
+    are its columns plus the sorted points inside [0, w)."""
+    rows, w, _ = img.shape
+    sorted_, _, _ = P._sort_cuda(img, nd, div, 0.0, 1.0, sharp)
+    n_seg = 2 * w + 1 if sharp else w + 1
+    pts = sorted_[0, :, :n_seg + 1].contiguous()
+    edges = torch.tensor([0.0, float(w)], dtype=torch.float64,
+                         device=pts.device).expand(rows, 2).contiguous()
+    lo = torch.searchsorted(pts, edges)
+    return int((lo[:, 1] - lo[:, 0]).sum()) + rows * w
+
+
+@pytest.mark.cuda
+def test_polylines_sweep_counts_its_replays():
+    """The sweep's replay counter engages where exact ties of closeness
+    leave the choice to the active list's order (the quantized ``ties``
+    map, the synthetic tie segments) and reads 0 on the ``structured``
+    map; every part is counted once, and no row of either map runs the
+    host loop whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for case in ("ties", "structured"):
+        rows, w, ch, kind, div, sep, expo, sharp = K2_CASES[case]
+        rng = np.random.default_rng(3)
+        img = torch.from_numpy(rng.integers(0, 256, (rows, w, ch),
+                                            dtype=np.uint8)).cuda()
+        nd = torch.from_numpy(_depth(kind, rows, w, 4)).cuda()
+        P.reset_replay_counts()
+        P.polylines_cuda(img, nd, div, sep, expo, sharp)
+        counts = P.replay_counts()
+        assert counts["parts"] == _sweep_parts(img, nd, div, sharp), case
+        assert counts["rows_whole"] == 0, case
+        if case == "ties":
+            assert counts["parts_replayed"] > 0
+        else:
+            assert counts["parts_replayed"] == 0
+    img, sorted_, rgb, order, _ = _synthetic_segments(
+        np.random.default_rng(7), 3, 90, 3, True, 12.0)
+    P.reset_replay_counts()
+    P._sweep_cuda(torch.from_numpy(sorted_).cuda(),
+                  torch.from_numpy(rgb).cuda(),
+                  torch.from_numpy(order).cuda(), 90, 3, True)
+    assert P.replay_counts()["parts_replayed"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", ["random", "smooth"])
+def test_polylines_1080p_eyes_equal_the_host_kernel(depth):
+    """Both sharp eyes of a 1080x1920 photo at the stereo cells'
+    divergence (2.5% of the width, +-24 px an eye), byte-exact against
+    the host kernel; no row runs the host loop whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cpu").manual_seed(8)
+    img = torch.randint(0, 256, (1080, 1920, 3), generator=g,
+                        dtype=torch.uint8)
+    if depth == "random":
+        nd = torch.rand((1080, 1920), generator=g, dtype=torch.float64)
+    else:
+        yy, xx = torch.meshgrid(torch.arange(1080, dtype=torch.float64),
+                                torch.arange(1920, dtype=torch.float64),
+                                indexing="ij")
+        nd = 0.5 + 0.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0)
+    for div in (24.0, -24.0):
+        P.reset_replay_counts()
+        got = P.polylines_cuda(img.cuda(), nd.cuda(), div, 0.0, 1.0,
+                               True).cpu()
+        assert P.replay_counts()["rows_whole"] == 0
+        want = P.polylines_host(img, nd, div, 0.0, 1.0, True)
+        assert torch.equal(got, want), int((got != want).sum())
 
 
 @pytest.mark.cuda

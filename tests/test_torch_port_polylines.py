@@ -141,7 +141,7 @@ def _max_active(nd, w, divpx, sep, expo, sharp):
 @pytest.mark.parametrize("case", ["random_sharp", "random_soft",
                                   "steps_sharp", "steps_soft", "flat_wide"])
 def test_many_active_segments(rng, case):
-    """The regimes the warp-per-row sweep must meet: more than 32 active
+    """The regimes the card's sweep must meet: more than 32 active
     segments (random depth, +-200 px at w = 256) and depth steps or flat
     depth at divergences where segments overlap."""
     h, w = 3, 256
@@ -159,6 +159,128 @@ def test_many_active_segments(rng, case):
         assert _max_active(nd, w, divpx, 0.0, 1.0, sharp) > 32
     if case.startswith("steps"):
         assert _max_active(nd, w, divpx, 0.0, 1.0, sharp) > 2
+
+
+def _sorted_segments(nd, w, divpx, sharp):
+    """polylines_plain's sorted segments, row by row: its points
+    (``_points``) stably sorted by x, as (pts with the last point, x1, d0,
+    d1) f64 arrays."""
+    px, pd, _ = P._points(torch.from_numpy(nd), w, divpx, 0.0, 1.0, sharp)
+    n_seg = px.shape[1] - 1
+    sx0, order = torch.sort(px[:, :n_seg], dim=1, stable=True)
+    pts = torch.cat([sx0, px[:, n_seg:]], 1)
+    return [t.numpy() for t in (pts, px.gather(1, order + 1),
+                                pd.gather(1, order), pd.gather(1, order + 1))]
+
+
+def _parts(pts, w):
+    """The host loop's sub-pixel parts of a row in step order: (column,
+    start point, centre xc)."""
+    parts, j = [], 0
+    for col in range(w):
+        while pts[j + 1] < col:
+            j += 1
+        while True:
+            a, b = pts[j], pts[j + 1]
+            cf = (a if col < a else float(col)) + P.EPS
+            ct = (b if b < col + 1.0 else col + 1.0) - P.EPS
+            parts.append((col, j, cf + 0.5 * (ct - cf)))
+            if not b < col + 1:
+                break
+            j += 1
+    return parts
+
+
+def _list_choice(active, xc, x0, x1, d0, d1):
+    """The host loop's choice on its active list."""
+    best = active[0] if active else -1
+    if len(active) != 1:
+        top = -P.EPS
+        for s in active:
+            ip = (xc - x0[s]) / (x1[s] - x0[s])
+            cl = (1.0 - ip) * d0[s] + ip * d1[s]
+            if top < cl and 0.0 < ip < 1.0:
+                top, best = cl, s
+    return best
+
+
+def _steps(active, ptr, xcs, x0, x1):
+    """The host loop's pushes and swap-with-last removals over the parts
+    with centres xcs, on segment indices; returns the list and pointer."""
+    active = list(active)
+    for xc in xcs:
+        while ptr < len(x1) and x0[ptr] < xc:
+            active.append(ptr)
+            ptr += 1
+        i = 0
+        while i < len(active):
+            if x1[active[i]] < xc:
+                active[i] = active[-1]
+                active.pop()
+            else:
+                i += 1
+    return active, ptr
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("kind", ["random", "ties", "beyond"])
+def test_sweep_window_rule_matches_the_list_order(rng, kind, sharp):
+    """The rule of K2's sweep (csrc/polylines.cu polylines_sweep): part
+    centres never fall along a row, so after a part's pushes and removals
+    the active set is the window {x0 < xc <= x1}, found below the push
+    pointer down to where the running maximum of the ends falls below xc.
+    Where one candidate holds the greatest closeness, or at most one
+    segment is live, the window's choice is the list's; elsewhere a replay
+    of the host loop's steps from the nearest earlier part with at most
+    one live segment rebuilds the list in its order."""
+    rows, w = 4, 96
+    nd = {"random": rng.random((rows, w)),
+          "ties": rng.integers(0, 5, (rows, w)) / 4.0,
+          "beyond": rng.random((rows, w)) * 90.0}[kind]
+    divpx = 1.0 if kind == "beyond" else (8.0 if sharp else -8.0)
+    replays = 0
+    for pts, x1, d0, d1 in zip(*_sorted_segments(nd, w, divpx, sharp)):
+        x0 = pts[:-1]
+        parts = _parts(pts, w)
+        xcs = [xc for _, _, xc in parts]
+        assert all(b >= a for a, b in zip(xcs, xcs[1:]))
+        reach = np.maximum.accumulate(x1)
+        active, ptr, windows = [], 0, []
+        for t, xc in enumerate(xcs):
+            active, ptr = _steps(active, ptr, [xc], x0, x1)
+            assert ptr == int(np.searchsorted(x0, xc, side="left"))
+            live, top, n_top, best = [], None, 0, -1
+            s = ptr - 1
+            while s >= 0 and not reach[s] < xc:
+                if not x1[s] < xc:
+                    live.append(s)
+                    ip = (xc - x0[s]) / (x1[s] - x0[s])
+                    cl = (1.0 - ip) * d0[s] + ip * d1[s] + 0.0
+                    if cl > -P.EPS and 0.0 < ip < 1.0:
+                        if top is None or cl > top:
+                            top, n_top, best = cl, 1, s
+                        elif cl == top:
+                            n_top += 1
+                s -= 1
+            assert sorted(live) == sorted(active)
+            windows.append((live, ptr))
+            want = _list_choice(active, xc, x0, x1, d0, d1)
+            if len(live) <= 1:
+                assert want == (live[0] if live else -1)
+            elif n_top == 1:
+                assert want == best
+            else:
+                # the anchor's list is its live set, its pointer the
+                # window's; none before the row's first part
+                replays += 1
+                q = t - 1
+                while q >= 0 and len(windows[q][0]) > 1:
+                    q -= 1
+                start = windows[q] if q >= 0 else ([], 0)
+                rebuilt, _ = _steps(*start, xcs[q + 1:t + 1], x0, x1)
+                assert rebuilt == active
+    if kind == "ties":
+        assert replays > 0
 
 
 def test_batched_matches_single(rng):

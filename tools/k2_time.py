@@ -9,10 +9,11 @@ builds that tree's kernels and times its polylines_cuda on the inputs of
 phase 3 of chip_smoke.py: 1080x1920 and 512x512, sharp, random and smooth
 depth, at the main path's divergence (+-2.5% / 2 of the width).  Per case
 it prints the time per call as a caller sees it (CUDA events over calls
-issued back to back), each kernel's device time per call (torch.profiler)
-and the device memory one call allocates at its peak.  To compare two
-commits, unpack both and give them as parent, change, change, parent.  The
-card's name and power limit come first.
+issued back to back), each kernel's device time per call (torch.profiler),
+the device memory one call allocates at its peak and, where the tree's
+sweep counts them, its parts, replayed parts and whole rows on one call.
+To compare two commits, unpack both and give them as parent, change,
+change, parent.  The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -55,6 +56,11 @@ def child(tree: str) -> None:
             def k2():
                 return pl.polylines_cuda(img, nd, div, 0.0, 1.0, True)
             k2()
+            counts = None   # a tree whose sweep counts its replays
+            if hasattr(pl, "replay_counts"):
+                pl.reset_replay_counts()
+                k2()
+                counts = pl.replay_counts()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -85,7 +91,8 @@ def child(tree: str) -> None:
                 "tree": tree, "shape": f"{rows}x{w}", "depth": depth,
                 "divergence_px": div, "ms_per_call": round(ms, 4),
                 "device_ms_per_call": dev,
-                "peak_alloc_MB": round(peak_mb, 1)}), flush=True)
+                "peak_alloc_MB": round(peak_mb, 1),
+                "sweep_counts": counts}), flush=True)
 
 
 def main() -> int:
