@@ -68,7 +68,7 @@ and prints no result):
   4. main path, MAIN_RUNS timed runs: dpt_beit_large_512 at full width
      (24 blocks, 1024 wide, random init from a seed, bf16) through
      PredictorCache and core_generation_funnel: 4 images of 512x512
-     (batched pre-pass) and one of 1920x1080 (serial path, inline
+     (one chunk) and one of 1920x1080 (a chunk of one, inline
      per-block bias, table resize), with
      depth, left-right and red-cyan-anaglyph outputs; the kernels' launch
      counts (K2: its sort and its sweep, one of each per eye) must show the
@@ -85,7 +85,8 @@ and prints no result):
   6. the default options' path, MAIN_RUNS timed runs: GenerationOptions()
      (Depth Anything v2 Base, net 448, 12 blocks, 768 wide, 12 heads,
      bf16) with naive-fill stereo, on the images of phase 4: K1 bias-free
-     at N = 1025 (batched) and 1825 (serial), 12 launches per forward;
+     at N = 1025 (the 512^2 chunk) and 1825 (1080p), 12 launches per
+     forward;
   7. long N, 2 timed runs: Depth Anything v2 Large (24 blocks, 1024 wide)
      with net_size_match on one 1920x1080 image, depth only: N = 10765,
      24 K1 launches;
@@ -95,7 +96,7 @@ and prints no result):
   9. this slice's path, MAIN_RUNS timed runs: dpt_large_384 at full width
      (ViT-L/16: 24 blocks, 1024 wide, 16 heads, bf16) on the images of
      phase 4 at net 384 with depth, normal map and heatmap: K1 at N = 577
-     (4 x 512^2, batched) and 1009 (1080p, serial), 24 launches a forward;
+     (the 4 x 512^2 chunk) and 1009 (1080p), 24 launches a forward;
      then one 512^2 image with the simple mesh (its OBJ must hold 512^2
      vertices);
  10. the rest of the zoo on the same images and outputs, 2 timed runs
@@ -138,7 +139,7 @@ and prints no result):
      launches), pass 2 with the maps injected (no K1; K2's sort and sweep
      once per eye, 40 each), the depth AVI and the stereo GIFs written;
      pass 1's frames / s, pass 2's s per frame, the writes, peak memory;
-     then predict_batch_stream equal to predict_batch chunk by chunk;
+     then pass 1's maps equal to predict_batch chunk by chunk;
  16. the 3D photo through core_generation_funnel (GenerationOptions(),
      gen_inpainted_mesh) on one textured 768 x 1024 image, from a working
      directory whose models/3dphoto holds seeded full-width checkpoints
@@ -226,6 +227,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from importlib import util as importlib_util
 
 # K1 bounds against the plain version (max abs error).  f32: the bound the
 # JAX package holds its TPU kernel to.  bf16: the output is rounded to
@@ -309,10 +311,24 @@ MAIN_RUNS = 2
 # [0, 1]): the same f32 weight matrices (built with the same operations),
 # products summed over up to 3000 terms in another order
 BOOST_CHAIN_TOL = 2e-5
-# One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): memory
-# bytes/s, bf16 and TF32 tensor-core and f32 CUDA-core flop/s
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+
+
+def _bench_peaks() -> dict:
+    """port_bench/peaks.py's table, loaded from beside this file by its
+    path: the timing tools load this file with another tree first on
+    sys.path."""
+    spec = importlib_util.spec_from_file_location(
+        "port_bench_peaks", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "port_bench", "peaks.py"))
+    mod = importlib_util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.PEAKS
+
+
+# One H100 SXM at its 700 W limit, the benchmark's peaks: memory bytes/s,
+# bf16 and TF32 tensor-core and f32 CUDA-core flop/s
+PEAK_FLOPS = _bench_peaks()["H100 80GB HBM3"]
+HBM_BPS = PEAK_FLOPS["hbm_bps"]
 
 
 # what a later phase reuses: phase 3's timed eye, phase 14's weights
@@ -1401,7 +1417,7 @@ def drive_funnel(phase, inp, images, groups, forwards, k2_eyes,
 
 def drive_mesh(phase, inp, image, cache, blocks):
     """The simple mesh of one image through the funnel (the raw map goes to
-    the host: serial path, one forward), written to a temporary directory
+    the host: one forward), written to a temporary directory
     and read back: a vertex a pixel, K1 launched once per block."""
     import dataclasses
     import tempfile
@@ -1438,9 +1454,9 @@ def drive_mesh(phase, inp, image, cache, blocks):
 
 
 def phase_main_path(profile: bool = False):
-    """dpt_beit_large_512 with polylines_sharp stereo: 4 x 512^2 on the
-    batched pre-pass, one 1080p image on the serial path (inline
-    per-block bias, table resize)."""
+    """dpt_beit_large_512 with polylines_sharp stereo: the funnel's chunk
+    of the 4 x 512^2 images and its chunk of one 1080p image (inline
+    per-block bias, table resize), a forward each."""
     from depthmap_tpu_torch.options import GenerationOptions
     images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
     inp = GenerationOptions(compute_device="GPU",
@@ -1449,19 +1465,19 @@ def phase_main_path(profile: bool = False):
                             stereo_modes=["left-right", "red-cyan-anaglyph"],
                             stereo_fill_algo="polylines_sharp")
     return drive_funnel("4-main", inp, images,
-                        [("512_batched", 4), ("1080p_serial", 1)],
+                        [("512_chunk", 4), ("1080p_chunk", 1)],
                         forwards=2, k2_eyes=2 * len(images), profile=profile)
 
 
 def phase_default_options(profile: bool = False):
     """GenerationOptions() defaults (Depth Anything v2 Base, net 448^2)
-    with naive-fill stereo: 4 x 512^2 batched (N = 1025), one 1080p image
-    serial (N = 1825)."""
+    with naive-fill stereo: a chunk of 4 x 512^2 (N = 1025), one 1080p
+    image (N = 1825)."""
     from depthmap_tpu_torch.options import GenerationOptions
     images = _test_images(6, [(512, 512)] * 4 + [(1080, 1920)])
     inp = GenerationOptions(gen_stereo=True, stereo_fill_algo="naive")
     return drive_funnel("6-default", inp, images,
-                        [("512_batched", 4), ("1080p_serial", 1)],
+                        [("512_chunk", 4), ("1080p_chunk", 1)],
                         forwards=2, k2_eyes=0, profile=profile)
 
 
@@ -1472,14 +1488,14 @@ def phase_long_n(profile: bool = False):
     images = _test_images(7, [(1080, 1920)])
     inp = GenerationOptions(model_type="Depth Anything v2 Large",
                             net_size_match=True)
-    return drive_funnel("7-long-n", inp, images, [("1080p_serial", 1)],
+    return drive_funnel("7-long-n", inp, images, [("1080p_chunk", 1)],
                         forwards=1, k2_eyes=0, profile=profile, runs=2)
 
 
 def phase_dpt_large(profile: bool = False):
     """This slice's path: dpt_large_384 with depth, normal map and
-    heatmap on the images of phase 4 at net 384: 4 x 512^2 batched (N =
-    577), one 1080p image serial (672 x 384, N = 1009); then the simple
+    heatmap on the images of phase 4 at net 384: a chunk of 4 x 512^2 (N
+    = 577), one 1080p image (672 x 384, N = 1009); then the simple
     mesh of one 512^2 image."""
     from depthmap_tpu_torch.options import GenerationOptions
     images = _test_images(3, [(512, 512)] * 4 + [(1080, 1920)])
@@ -1487,7 +1503,7 @@ def phase_dpt_large(profile: bool = False):
                             net_width=384, net_height=384,
                             gen_normalmap=True, gen_heatmap=True)
     k1, _ = drive_funnel("9-dpt-large", inp, images,
-                         [("512_batched", 4), ("1080p_serial", 1)],
+                         [("512_chunk", 4), ("1080p_chunk", 1)],
                          forwards=2, k2_eyes=0, profile=profile,
                          mesh_image=images[0])
     return k1
@@ -1509,7 +1525,7 @@ def phase_zoo(profile: bool = False):
                                 gen_normalmap=True, gen_heatmap=True)
         launches[name], _ = drive_funnel(
             f"10-{name}", inp, images,
-            [("512_batched", 4), ("1080p_serial", 1)], forwards=2,
+            [("512_chunk", 4), ("1080p_chunk", 1)], forwards=2,
             k2_eyes=0, profile=profile, runs=2)
     return launches
 
@@ -1534,7 +1550,7 @@ def phase_metric_zoo(profile: bool = False):
         core = torch.float32 if name == "res101" else torch.bfloat16
         launches[name], _ = drive_funnel(
             f"12-{name}", inp, images,
-            [("512_batched", 4), ("1080p_serial", 1)], forwards=2,
+            [("512_chunk", 4), ("1080p_chunk", 1)], forwards=2,
             k2_eyes=0, profile=profile, runs=runs,
             dtypes=(torch.float32, core))
     return launches
@@ -2124,8 +2140,8 @@ def phase_video(profile: bool = False):
     448) with polylines_sharp stereo on 20 textured 1920 x 1080 PNG frames:
     pass 1 in chunks of 8 (the tail of 4 its own batch), 36 K1 launches;
     pass 2 injects the maps, no K1, K2's sort and sweep once per eye (40
-    each).  Then predict_batch_stream against predict_batch chunk by chunk
-    on the card."""
+    each).  Then pass 1's maps (uint8 chunks) against predict_batch on the
+    f32 /255 stacks, chunk by chunk, on the card."""
     import tempfile
     import numpy as np
     import torch
@@ -2145,12 +2161,13 @@ def phase_video(profile: bool = False):
         _save_pngs(images, os.path.join(tmp, "frames"))
         pass1 = _Timed(vm, "_predict_video_depths")
         writes = _Timed(vm, "frames_to_video")
-        pass1_counts = []
+        pass1_counts, pass1_maps = [], []
         orig = pass1.orig
 
         def pass1_then_count(*args, **kw):
             out = orig(*args, **kw)
             pass1_counts.append(_counts())
+            pass1_maps.append(out)
             return out
         pass1.orig = pass1_then_count
         try:
@@ -2203,16 +2220,17 @@ def phase_video(profile: bool = False):
         raise AssertionError(f"video: K2 sorts {sorts} / sweeps {sweeps} "
                              f"(pass 1: {sorts_p1} / {sweeps_p1}), expected "
                              f"{2 * VIDEO_FRAMES} each in pass 2")
-    # the stream against predict_batch, chunk by chunk, on the card
+    # pass 1 against predict_batch on the f32 stacks, chunk by chunk
     before = fa.flash_attention_cuda.launches
-    streamed = list(pred.predict_batch_stream(iter(stacks), 448, 448))
-    for got, s in zip(streamed, stacks):
-        want = pred.predict_batch(s, 448, 448)
+    sign = -1.0 if pred.raw_prediction_invert else 1.0
+    for i, s in enumerate(stacks):
+        got = np.stack(pass1_maps[0][i * VIDEO_CHUNK:(i + 1) * VIDEO_CHUNK])
+        want = sign * pred.predict_batch(s, 448, 448)
         if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError("predict_batch_stream differs from "
+            raise AssertionError(f"video pass 1's chunk {i} differs from "
                                  "predict_batch on the card: max "
                                  f"{np.abs(got - want).max()}")
-    log("15-video-stream", chunks=[len(s) for s in stacks], equal=True,
+    log("15-video-pass1", chunks=[len(s) for s in stacks], equal=True,
         k1_launches=fa.flash_attention_cuda.launches - before)
     if profile:
         with tempfile.TemporaryDirectory() as tmp:

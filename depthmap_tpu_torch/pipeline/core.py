@@ -228,12 +228,52 @@ def _oom_advice(inp):
         raise
 
 
-def _pixels(image) -> int:
-    """H x W of a PIL image or an array."""
+# photos of one shape ride one forward + finalize per run of up to this many
+FUNNEL_CHUNK = 8
+
+
+def _hw(image) -> Tuple[int, int]:
+    """(H, W) of a PIL image or an array, read without converting it."""
     if hasattr(image, "getbands"):
-        return image.height * image.width
-    shape = np.asarray(image).shape
-    return shape[0] * shape[1]
+        return image.height, image.width
+    return tuple(np.shape(image)[:2])
+
+
+def _chunk_plan(images, depthmaps) -> Dict[int, List[int]]:
+    """Each photo without a custom depth map -> the input indices of its
+    chunk: the photos grouped by (H, W) in input order, each group cut
+    into runs of FUNNEL_CHUNK (a photo alone in its group is a chunk of
+    one)."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, (image, dm) in enumerate(zip(images, depthmaps)):
+        if dm is None:
+            groups.setdefault(_hw(image), []).append(i)
+    plan: Dict[int, List[int]] = {}
+    for members in groups.values():
+        for s in range(0, len(members), FUNNEL_CHUNK):
+            chunk = members[s:s + FUNNEL_CHUNK]
+            plan.update(dict.fromkeys(chunk, chunk))
+    return plan
+
+
+def _depth_chunk(predictor, inp, call, images, members
+                 ) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    """One chunk's photos as RGB arrays and their uint16 maps, finalized on
+    the predictor's device in one forward: input index -> (RGB, map)."""
+    with stage("prepare", call):
+        rgbs = [to_rgb(images[i]) for i in members]
+        # uint8 photos go as they are: the predictor sends their bytes and
+        # divides by 255 on its device
+        photos = rgbs if all(p.dtype == np.uint8 for p in rgbs) else \
+            np.stack(rgbs).astype(np.float32) / 255.0
+    h, w = rgbs[0].shape[:2]
+    net_w, net_h = _funnel_net_size(inp, w, h)
+    with _oom_advice(inp), stage("depth_batch", call):
+        maps = to_host(predictor.finalized_batch(
+            photos, net_w, net_h, clip=inp.clipdepth,
+            clip_mode=inp.clipdepth_mode, clip_far=inp.clipdepth_far,
+            clip_near=inp.clipdepth_near))
+    return dict(zip(members, zip(rgbs, maps)))
 
 
 def _convert_to_i16_host(out: np.ndarray) -> np.ndarray:
@@ -295,110 +335,56 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
         predictor = cache.get(inp.model_type, tiling_mode=inp.tiling_mode,
                               **predictor_kw)
 
-    # Batched pre-pass: images that share a shape and need no host-side raw
-    # map ride one forward + finalize per chunk of DEPTHMAP_FUNNEL_BATCH
-    # (Marigold's one image at a time).  It holds every input's RGB array
-    # and uint16 map (5 bytes a pixel) until the loop below yields them, so
-    # above DEPTHMAP_FUNNEL_BATCH_MAX_BYTES (1 GiB) of inputs it is skipped
-    # and the loop streams one image at a time.  A failure raises: it does
-    # not fall back to the serial loop.  The raw map goes to the host for
-    # depth_prediction and the simple mesh, and Boost makes it there.
+    # The raw map goes to the host for depth_prediction and the simple
+    # mesh, and Boost makes it there; every other predicted photo's map is
+    # finalized on the device with its chunk's, made when the loop first
+    # reaches one of its photos and held until each photo is yielded.
     raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh or \
         inp.boost
-    fused: Dict[int, np.ndarray] = {}
-    rgb_cache: Dict[int, np.ndarray] = {}
+    plan = {} if raw_to_host else _chunk_plan(inputimages, inputdepthmaps)
+    made: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     inpaint_imgs: List[np.ndarray] = []
     inpaint_depths: List[np.ndarray] = []
-    if predictor is not None and not raw_to_host and len(inputimages) > 1:
-        chunk = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH", "8"))
-        max_bytes = int(os.environ.get("DEPTHMAP_FUNNEL_BATCH_MAX_BYTES",
-                                       str(1 << 30)))
-        total = sum(5 * _pixels(im) for im in inputimages)
-        groups: Dict[Tuple[int, int], list] = {}
-        if chunk >= 2 and total <= max_bytes:
-            with stage("prepare", call):
-                for count, image in enumerate(inputimages):
-                    if inputdepthmaps[count] is not None:
-                        continue
-                    arr = to_rgb(image)
-                    rgb_cache[count] = arr
-                    groups.setdefault(arr.shape[:2], []).append((count, arr))
-        for (h, w), members in groups.items():
-            if len(members) < 2:
-                continue
-            nw, nh = _funnel_net_size(inp, w, h)
-            for i in range(0, len(members), chunk):
-                part = members[i:i + chunk]
-                with stage("prepare", call):
-                    # uint8 photos go as they are: the predictor sends
-                    # their bytes and divides by 255 on its device
-                    photos = [m[1] for m in part]
-                    if not all(p.dtype == np.uint8 for p in photos):
-                        photos = np.stack(photos).astype(np.float32) / 255.0
-                with _oom_advice(inp), stage("depth_batch", call):
-                    maps = to_host(predictor.finalized_batch(
-                        photos, nw, nh, clip=inp.clipdepth,
-                        clip_mode=inp.clipdepth_mode,
-                        clip_far=inp.clipdepth_far,
-                        clip_near=inp.clipdepth_near))
-                for (idx, _), m16 in zip(part, maps):
-                    fused[idx] = m16
-
     for count, image in enumerate(inputimages):
-        # a photo the pre-pass did not predict makes its forward's input
-        serial = inputdepthmaps[count] is None and count not in fused
-        with stage("prepare", call) if serial else contextlib.nullcontext():
-            img = rgb_cache.pop(count, None)
-            if img is None:
-                img = to_rgb(image)
-            # the forward's input: a uint8 photo as it is for a device
-            # forward (the predictor divides by 255 there); the host's f32
-            # /255 for Boost, the raw map's host paths and other dtypes
-            net_in = None
-            if serial:
-                net_in = img if img.dtype == np.uint8 and not raw_to_host \
-                    else img.astype(np.float32) / 255.0
-        h, w = img.shape[:2]
-
-        img_output = None
         depthi = None      # the map the simple mesh is made from
-        if inputdepthmaps[count] is not None:
+        if count in plan:
+            if count not in made:
+                made.update(_depth_chunk(predictor, inp, call, inputimages,
+                                         plan[count]))
+            img, img_output = made.pop(count)
+        elif inputdepthmaps[count] is not None:
+            img = to_rgb(image)
+            h, w = img.shape[:2]
             depthi = ingest_custom_depthmap(inputdepthmaps[count], w, h)
             img_output = _convert_to_i16_host(depthi)
-        elif count in fused:
-            img_output = fused.pop(count)
         else:
-            net_w, net_h = _funnel_net_size(inp, w, h)
-            if not raw_to_host:
-                with _oom_advice(inp), stage("depth_predict", call):
-                    img_output = predictor.predict_finalized(
-                        net_in, net_w, net_h, clip=inp.clipdepth,
-                        clip_mode=inp.clipdepth_mode,
-                        clip_far=inp.clipdepth_far,
-                        clip_near=inp.clipdepth_near)
+            with stage("prepare", call):
+                img = to_rgb(image)
+                net_in = img.astype(np.float32) / 255.0
+            h, w = img.shape[:2]
+            if inp.boost:
+                with _oom_advice(inp):
+                    boost = cache.get_boost(
+                        inp.model_type, tiling_mode=inp.tiling_mode,
+                        **predictor_kw)
+                    with stage("boost_estimate", call):
+                        raw = boost.estimate(
+                            net_in, whole_size_threshold=boost_rmax)
             else:
-                if inp.boost:
-                    with _oom_advice(inp):
-                        boost = cache.get_boost(
-                            inp.model_type, tiling_mode=inp.tiling_mode,
-                            **predictor_kw)
-                        with stage("boost_estimate", call):
-                            raw = boost.estimate(
-                                net_in, whole_size_threshold=boost_rmax)
-                else:
-                    with _oom_advice(inp), stage("depth_predict", call):
-                        raw = predictor.predict(net_in, net_w, net_h)
-                depthi = raw
-                invert = predictor.raw_prediction_invert
-                if inp.do_output_depth_prediction and \
-                        abs(raw.max() - raw.min()) > np.finfo("float").eps:
-                    yield count, "depth_prediction", -raw if invert else \
-                        np.copy(raw)
-                img_output = numerics.finalize_i16(
-                    torch.from_numpy(raw), invert=invert,
-                    clip=inp.clipdepth, clip_mode=inp.clipdepth_mode,
-                    clip_far=inp.clipdepth_far,
-                    clip_near=inp.clipdepth_near).numpy()
+                with _oom_advice(inp), stage("depth_batch", call):
+                    raw = predictor.predict(net_in,
+                                            *_funnel_net_size(inp, w, h))
+            depthi = raw
+            invert = predictor.raw_prediction_invert
+            if inp.do_output_depth_prediction and \
+                    abs(raw.max() - raw.min()) > np.finfo("float").eps:
+                yield count, "depth_prediction", -raw if invert else \
+                    np.copy(raw)
+            img_output = numerics.finalize_i16(
+                torch.from_numpy(raw), invert=invert,
+                clip=inp.clipdepth, clip_mode=inp.clipdepth_mode,
+                clip_far=inp.clipdepth_far,
+                clip_near=inp.clipdepth_near).numpy()
 
         if inp.gen_inpainted_mesh:
             inpaint_imgs.append(img)

@@ -4,7 +4,7 @@ Port of ``depthmap_tpu/pipeline/depth.py``'s DepthPredictor for every
 model of the zoo (LeReS, the MiDaS / DPT zoo, ZoeDepth, Marigold, Depth
 Anything):
 preprocessing, the forward and the upsample back to the input size run on
-the predictor's device; ``predict_finalized*`` also finalize to uint16
+the predictor's device; ``finalized_batch`` also finalizes to uint16
 there, so only the uint16 map goes to the host.  ZoeDepth resizes and
 normalizes inside its module and returns the map at the input size; its
 relative-depth core runs in ``core_dtype``, its metric head in f32.  What
@@ -248,8 +248,8 @@ class DepthPredictor:
                            self.bundle.upsample_mode,
                            self.bundle.upsample_align_corners)[:, 0]
 
-    def _forward(self, imgs01: torch.Tensor, net_w: int, net_h: int,
-                 resize_mode: Optional[str] = None) -> torch.Tensor:
+    def _forward(self, imgs01: torch.Tensor, net_w: int,
+                 net_h: int) -> torch.Tensor:
         """(N, H, W, 3) float RGB in [0, 1] on the device -> (N, H, W) f32
         raw prediction at the input size."""
         if self.bundle.prep_in_model:
@@ -258,8 +258,7 @@ class DepthPredictor:
                 x = x.flip(-1)
             return self.forward_net(x.permute(0, 3, 1, 2).contiguous(),
                                     net_size=(net_h, net_w))
-        x = preprocess_images(imgs01, net_w, net_h, self.bundle.preprocess,
-                              resize_mode)
+        x = preprocess_images(imgs01, net_w, net_h, self.bundle.preprocess)
         return self.forward_net(x, imgs01.shape[1:3])
 
     def _pipeline_maps(self, batch: torch.Tensor,
@@ -285,8 +284,7 @@ class DepthPredictor:
                 maps.append(cv2_resize_cubic_t(depth, (w, h)))
         return torch.cat(maps)
 
-    def _raw_batch(self, imgs01, net_w: int, net_h: int,
-                   resize_mode: Optional[str] = None) -> torch.Tensor:
+    def _raw_batch(self, imgs01, net_w: int, net_h: int) -> torch.Tensor:
         """(N, H, W) raw maps on the device, the stack split over the
         devices where their number divides it; a host pipeline's one
         photo at a time, its members split over them instead."""
@@ -294,8 +292,7 @@ class DepthPredictor:
         with stage("forward"):
             if self.bundle.host_pipeline:
                 return self._pipeline_maps(batch, net_w)
-            return split_run(lambda x: self._forward(x, net_w, net_h,
-                                                     resize_mode),
+            return split_run(lambda x: self._forward(x, net_w, net_h),
                              self.devices, batch)
 
     def _to_device(self, imgs) -> torch.Tensor:
@@ -330,71 +327,28 @@ class DepthPredictor:
         return net_w, net_h
 
     def predict(self, img01: np.ndarray, net_w: Optional[int] = None,
-                net_h: Optional[int] = None,
-                resize_mode: Optional[str] = None) -> np.ndarray:
+                net_h: Optional[int] = None) -> np.ndarray:
         """img01: (H, W, 3) RGB, float in [0, 1] or uint8 -> raw
         prediction (H, W)."""
         net_w, net_h = self._default_size(net_w, net_h)
-        return to_host(self._raw_batch(np.asarray(img01)[None], net_w, net_h,
-                                       resize_mode)[0])
+        return to_host(self._raw_batch(np.asarray(img01)[None], net_w,
+                                       net_h)[0])
 
     def predict_batch(self, imgs01: np.ndarray, net_w: Optional[int] = None,
-                      net_h: Optional[int] = None,
-                      resize_mode: Optional[str] = None) -> np.ndarray:
+                      net_h: Optional[int] = None) -> np.ndarray:
         """(N, H, W, 3) same-shape stack (float in [0, 1] or uint8) -> (N,
         H, W) raw predictions, one forward over the batch."""
         net_w, net_h = self._default_size(net_w, net_h)
-        return to_host(self._raw_batch(imgs01, net_w, net_h, resize_mode))
-
-    def predict_batch_stream(self, stacks, net_w: Optional[int] = None,
-                             net_h: Optional[int] = None,
-                             resize_mode: Optional[str] = None):
-        """``predict_batch`` over an iterable of same-shape (N, H, W, 3)
-        stacks, yielding each chunk's (N, H, W) f32 maps in order, with one
-        chunk in flight: on the card, chunk i + 1's forward is launched
-        before chunk i is copied to pinned memory (on a side stream that
-        waits on chunk i's event) and waited for.  A host pipeline
-        (Marigold) goes chunk by chunk."""
-        net_w, net_h = self._default_size(net_w, net_h)
-        if self.bundle.host_pipeline or self.device.type != "cuda":
-            for stack in stacks:
-                yield self.predict_batch(stack, net_w, net_h, resize_mode)
-            return
-        side = torch.cuda.Stream(self.device)
-        pending = None   # (raw maps on the card, their forward's event)
-        for stack in stacks:
-            raw = self._raw_batch(stack, net_w, net_h, resize_mode)
-            done = torch.cuda.Event()
-            done.record()
-            if pending is not None:
-                yield self._download(pending, side)
-            pending = (raw, done)
-        if pending is not None:
-            yield self._download(pending, side)
-
-    @staticmethod
-    def _download(pending, side) -> np.ndarray:
-        """Copy a chunk's maps to pinned memory on ``side`` once its
-        forward's event fires, and wait for the copy."""
-        raw, done = pending
-        host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
-        with torch.cuda.stream(side):
-            side.wait_event(done)
-            host.copy_(raw, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(side)
-        copied.synchronize()
-        return host.numpy()
+        return to_host(self._raw_batch(imgs01, net_w, net_h))
 
     def finalized_batch(self, imgs01, net_w: int, net_h: int, *,
                         clip: bool = False, clip_mode: str = "Range",
-                        clip_far: float = 0.0, clip_near: float = 1.0,
-                        resize_mode: Optional[str] = None) -> torch.Tensor:
-        """The device half of predict_finalized_batch: a same-shape (N, H,
-        W, 3) stack or list of photos (float in [0, 1] or uint8) -> (N, H,
-        W) uint16 on the device, each frame finalized against its own
-        range."""
-        raw = self._raw_batch(imgs01, net_w, net_h, resize_mode)
+                        clip_far: float = 0.0,
+                        clip_near: float = 1.0) -> torch.Tensor:
+        """A same-shape (N, H, W, 3) stack or list of photos (float in [0,
+        1] or uint8) -> (N, H, W) uint16 on the device, one forward, each
+        frame finalized against its own range."""
+        raw = self._raw_batch(imgs01, net_w, net_h)
         with stage("finalize"):
             return numerics.finalize_i16(
                 raw, invert=self.raw_prediction_invert, clip=bool(clip),
@@ -405,33 +359,16 @@ class DepthPredictor:
                           net_w: Optional[int] = None,
                           net_h: Optional[int] = None, *,
                           clip: bool = False, clip_mode: str = "Range",
-                          clip_far: float = 0.0, clip_near: float = 1.0,
-                          resize_mode: Optional[str] = None) -> np.ndarray:
+                          clip_far: float = 0.0,
+                          clip_near: float = 1.0) -> np.ndarray:
         """(H, W, 3) RGB, float in [0, 1] or uint8: forward ->
         finalize_depth -> convert_to_i16 on the device; only the (H, W)
         uint16 map comes back."""
         net_w, net_h = self._default_size(net_w, net_h)
         out = self.finalized_batch(np.asarray(img01)[None], net_w, net_h,
                                    clip=clip, clip_mode=clip_mode,
-                                   clip_far=clip_far, clip_near=clip_near,
-                                   resize_mode=resize_mode)
+                                   clip_far=clip_far, clip_near=clip_near)
         return to_host(out[0])
-
-    def predict_finalized_batch(self, imgs01: np.ndarray,
-                                net_w: Optional[int] = None,
-                                net_h: Optional[int] = None, *,
-                                clip: bool = False, clip_mode: str = "Range",
-                                clip_far: float = 0.0, clip_near: float = 1.0,
-                                resize_mode: Optional[str] = None
-                                ) -> np.ndarray:
-        """(N, H, W, 3) same-shape stack (float in [0, 1] or uint8) -> (N,
-        H, W) uint16, one forward, each frame normalized against its own
-        min/max."""
-        net_w, net_h = self._default_size(net_w, net_h)
-        return to_host(self.finalized_batch(
-            imgs01, net_w, net_h, clip=clip, clip_mode=clip_mode,
-            clip_far=clip_far, clip_near=clip_near,
-            resize_mode=resize_mode))
 
     @property
     def raw_prediction_invert(self) -> bool:

@@ -3,9 +3,9 @@
 Port of ``depthmap_tpu/pipeline/video_mode.py``:
 
 * pass 1 (``_predict_video_depths``): the raw, un-normalized prediction of
-  every frame.  Frames of one size run as chunks of ``chunk`` through
-  ``DepthPredictor.predict_batch_stream`` (one chunk's forward in flight
-  while the previous one downloads); the last chunk runs as its own
+  every frame.  Frames of one size run as uint8 chunks of ``chunk``
+  (the funnel's ``FUNNEL_CHUNK`` by default) through
+  ``DepthPredictor.predict_batch``; the last chunk runs as its own
   smaller batch.  Boost, Marigold and frames of mixed sizes go through the
   funnel frame by frame;
 * ``process_predictions``: global scaling over the whole video, with the
@@ -33,6 +33,7 @@ import numpy as np
 
 from depthmap_tpu_torch.io.image import get_next_sequence_number
 from depthmap_tpu_torch.options import GenerationOptions
+from depthmap_tpu_torch.pipeline.core import FUNNEL_CHUNK
 
 
 def read_depth_video_16(path: str):
@@ -238,11 +239,12 @@ def process_predictions(predictions: List[np.ndarray],
 
 
 def _predict_video_depths(input_images, inp, predictor_cache=None,
-                          chunk: int = 8) -> List[np.ndarray]:
+                          chunk: int = FUNNEL_CHUNK) -> List[np.ndarray]:
     """Pass 1: the raw prediction of every frame.  Frames of one size
-    without Boost or a host pipeline (Marigold) run as chunks of ``chunk``
-    through ``predict_batch_stream``; otherwise the funnel runs frame by
-    frame with only ``depth_prediction`` asked for."""
+    without Boost or a host pipeline (Marigold) run as uint8 chunks of
+    ``chunk`` through ``predict_batch``, which divides by 255 on its
+    device; otherwise the funnel runs frame by frame with only
+    ``depth_prediction`` asked for."""
     from depthmap_tpu_torch.models.build import is_host_pipeline
     from depthmap_tpu_torch.pipeline.core import (_default_cache,
                                                   _funnel_net_size,
@@ -258,10 +260,9 @@ def _predict_video_depths(input_images, inp, predictor_cache=None,
                               device=options_device(inp_))
         h, w = frames[0].shape[:2]
         net_w, net_h = _funnel_net_size(inp_, w, h)
-        stacks = (np.stack(frames[s:s + chunk]).astype(np.float32) / 255.0
-                  for s in range(0, len(frames), chunk))
-        preds = np.concatenate(list(predictor.predict_batch_stream(
-            stacks, net_w, net_h)), axis=0)
+        preds = np.concatenate([predictor.predict_batch(
+            np.stack(frames[s:s + chunk]), net_w, net_h)
+            for s in range(0, len(frames), chunk)])
         if predictor.raw_prediction_invert:
             preds = -preds
         return list(preds)

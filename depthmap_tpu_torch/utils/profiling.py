@@ -20,7 +20,7 @@ Port of ``depthmap_tpu/utils/profiling.py``: ``stage``, ``timings``,
   total less the time its child spans cover).
 
     from depthmap_tpu_torch.utils.profiling import stage, report
-    with stage("depth_predict"):
+    with stage("depth_batch"):
         ...
     print(report())
 """

@@ -27,12 +27,11 @@ the flip-TTA batch), and the conv nets midas_v21 / midas_v21_small and
 LeReS (no K1), hold to 1e-3 of the CPU map's range, the bound
 chip_smoke.py holds the whole path to.  The normal
 map on the card holds to its CPU twin within |d| <= 1 on <= 0.1% of the
-bytes.  Video mode and the 3D photo (plain torch on the card, no kernel
-of their own beyond K1 / K2): ``predict_batch_stream`` equals
-``predict_batch`` chunk by chunk; the weighted median and the renderer's
-frames (triangles and splat, tests/test_render.py's scene) equal the
-CPU's; the three full-width inpainting nets hold to 1e-4 of the CPU
-output's range (f32, TF32 off).
+bytes.  The 3D photo (plain torch on the card, no kernel of its own
+beyond K1): the weighted median and the renderer's frames (triangles and
+splat, tests/test_render.py's scene) equal the CPU's; the three
+full-width inpainting nets hold to 1e-4 of the CPU output's range (f32,
+TF32 off).
 """
 from __future__ import annotations
 
@@ -764,41 +763,11 @@ def test_small_marigold_card_matches_cpu():
                                atol=1e-3 * rng_)
 
 
-# -- video mode and the 3D photo: plain torch on the card, held to the CPU --
+# -- the 3D photo: plain torch on the card, held to the CPU --
 
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-
-
-@pytest.mark.cuda
-def test_predict_batch_stream_card_equals_predict_batch():
-    """Video mode's pass 1 on the card: the stream (one chunk in flight,
-    pinned copies on a side stream) gives predict_batch's maps chunk by
-    chunk; a small Depth Anything v2, bf16, chunks of 3 and a tail of 1."""
-    _needs_card()
-    import dataclasses
-    from depthmap_tpu_torch.models.build import build_model
-    from depthmap_tpu_torch.models.depth_anything import DepthAnything
-    from depthmap_tpu_torch.models.dinov2 import DinoV2Backbone
-    from depthmap_tpu_torch.models.weights import init_random_
-    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
-    small = DepthAnything(DinoV2Backbone(embed_dim=128, depth=4, num_heads=2,
-                                         hooks=(0, 1, 2, 3),
-                                         train_img_size=56),
-                          features=32, out_channels=(16, 32, 64, 64))
-    init_random_(small, seed=4)
-    with torch.device("meta"):
-        bundle = build_model(13)
-    pred = DepthPredictor(13, state_dict=small.state_dict(), device="cuda",
-                          bundle=dataclasses.replace(bundle, module=small))
-    rng = np.random.default_rng(6)
-    stacks = [rng.random((n, 60, 84, 3)).astype(np.float32) for n in (3, 1)]
-    before = fa.flash_attention_cuda.launches
-    got = list(pred.predict_batch_stream(iter(stacks), 70, 70))
-    assert fa.flash_attention_cuda.launches - before == 8
-    for g, s in zip(got, stacks):
-        np.testing.assert_array_equal(g, pred.predict_batch(s, 70, 70))
 
 
 @pytest.mark.cuda

@@ -160,7 +160,7 @@ def test_batched_prepass_equals_serial(rng, monkeypatch):
                    net_height=64)
     batched = _run(tcore.core_generation_funnel, imgs, None, inp,
                    _FixedCache(tp))
-    monkeypatch.setenv("DEPTHMAP_FUNNEL_BATCH", "1")
+    monkeypatch.setattr(tcore, "FUNNEL_CHUNK", 1)
     serial = _run(tcore.core_generation_funnel, imgs, None, inp,
                   _FixedCache(tp))
     for (_, b), (_, s) in zip(batched["depth"], serial["depth"]):

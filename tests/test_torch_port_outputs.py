@@ -193,9 +193,10 @@ class _CountingPredictor:
         self.model_type = model_type
         self.raw_prediction_invert = False
 
-    def predict_finalized(self, img, net_w, net_h, **kw):
-        # a uint8 photo in 0-255, as the funnel hands a device forward
-        return (img[..., 0] / 255.0 * 65535).astype(np.uint16)
+    def finalized_batch(self, imgs, net_w, net_h, **kw):
+        # uint8 photos in 0-255, as the funnel hands a device forward
+        return torch.from_numpy((np.asarray(imgs)[..., 0] / 255.0
+                                 * 65535).astype(np.uint16))
 
 
 @pytest.fixture

@@ -1,12 +1,13 @@
-"""Two repairs of the port's funnel, held to the JAX funnel.
+"""The port's funnel: its chunk plan and its out-of-memory advice.
 
-The batched pre-pass honours DEPTHMAP_FUNNEL_BATCH_MAX_BYTES: 5 bytes a
-pixel summed over the inputs, as depthmap_tpu/pipeline/core.py:230-239
-sums them; above the cap no batched call is made and the outputs are the
-same bytes.  An out-of-memory error (torch.OutOfMemoryError, or any error
-whose text holds "out of memory") re-raises as an Exception carrying the
-JAX funnel's advice, chained to the original, in the serial loop and in
-the pre-pass.
+The funnel groups the photos it predicts by shape, in input order, into
+runs of FUNNEL_CHUNK (custom depth maps and the raw map's host paths
+stay out), and makes each chunk when its loop first reaches one of its
+photos: the outputs come in input order, byte-equal to one photo at a
+time, and a chunk's maps are yielded before the next chunk's forward.
+An out-of-memory error (torch.OutOfMemoryError, or any error whose text
+holds "out of memory") re-raises as an Exception carrying the JAX funnel's
+advice, chained to the original, for a chunk of one and of two.
 """
 from __future__ import annotations
 
@@ -30,57 +31,69 @@ def _unit(imgs) -> np.ndarray:
 
 
 class _Counting:
-    """A predictor that maps the red channel to depth and counts the
-    batched and the single calls."""
+    """A predictor that maps the red channel to depth (each map depends on
+    its photo alone) and records each forward's photos by their green
+    byte at (0, 0), which the tests set to the photo's index."""
     raw_prediction_invert = False
 
     def __init__(self):
-        self.batched = self.single = 0
+        self.forwards = []
 
     def finalized_batch(self, imgs, net_w, net_h, **kw):
-        self.batched += 1
+        self.forwards.append([int(p[0, 0, 1]) for p in imgs])
         return torch.from_numpy(
             (_unit(imgs)[..., 0] * 65535).astype(np.uint16))
 
-    def predict_finalized(self, img, net_w, net_h, **kw):
-        self.single += 1
-        return (_unit(img)[..., 0] * 65535).astype(np.uint16)
+
+def _tagged(rng, shapes):
+    """uint8 photos of ``shapes``, photo i's green byte at (0, 0) set to
+    i."""
+    imgs = _images(rng, shapes)
+    for i, im in enumerate(imgs):
+        im[0, 0, 1] = i
+    return imgs
 
 
-def _capped(rng, monkeypatch, cap):
-    imgs = _images(rng, [(20, 30), (20, 30), (20, 30)])
+def test_chunks_are_by_shape_runs_in_input_order(rng, monkeypatch):
+    """Two shapes interleaved, a third alone and a custom depth map among
+    them, chunks of 2: one forward per by-shape run, in the order the loop
+    reaches each run's first photo; the outputs in input order, each
+    byte-equal to the map the predictor gives its photo alone."""
+    monkeypatch.setattr(tcore, "FUNNEL_CHUNK", 2)
+    a, b, c = (20, 30), (16, 24), (12, 12)
+    imgs = _tagged(rng, [a, b, a, a, b, a, b, a, c])
+    dms = [None] * len(imgs)
+    dms[3] = rng.random(a)
     pred = _Counting()
-    if cap is not None:
-        monkeypatch.setenv("DEPTHMAP_FUNNEL_BATCH_MAX_BYTES", str(cap))
-    out = _run(tcore.core_generation_funnel, imgs, None,
-               TOptions(compute_device="CPU", gen_stereo=True),
-               _FixedCache(pred))
-    return pred, out
+    out = _run(tcore.core_generation_funnel, imgs, dms,
+               TOptions(compute_device="CPU"), _FixedCache(pred))
+    # shape a: 0, 2, 5, 7 (3 has its own map); b: 1, 4, 6; c: 8
+    assert pred.forwards == [[0, 2], [1, 4], [5, 7], [6], [8]]
+    assert [i for i, _ in out["depth"]] == list(range(len(imgs)))
+    alone = _Counting()
+    for i, got in out["depth"]:
+        want = tcore._convert_to_i16_host(dms[i]) if i == 3 else \
+            alone.finalized_batch([imgs[i]], 0, 0)[0].numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(i))
 
 
-def test_cap_skips_the_batched_prepass(rng, monkeypatch):
-    total = 3 * 5 * 20 * 30     # 3 B RGB + 2 B uint16 a pixel
-    free, want = _capped(np.random.default_rng(0), monkeypatch, None)
-    assert (free.batched, free.single) == (1, 0)
-    at_cap, got = _capped(np.random.default_rng(0), monkeypatch, total)
-    assert (at_cap.batched, at_cap.single) == (1, 0)
-    over, got = _capped(np.random.default_rng(0), monkeypatch, total - 1)
-    assert (over.batched, over.single) == (0, 3)
-    assert set(got) == set(want) == {"depth", "left-right",
-                                     "red-cyan-anaglyph"}
-    for typ in want:
-        for (i, g), (j, w) in zip(got[typ], want[typ]):
-            assert i == j
-            np.testing.assert_array_equal(g, w, err_msg=typ)
-
-
-def test_cap_counts_every_input_as_jax_does(rng):
-    """The sum covers PIL images and arrays, custom-depth inputs too."""
-    from PIL import Image
-    imgs = [Image.new("RGB", (30, 20)), np.zeros((7, 9, 3), np.uint8),
-            np.zeros((5, 4), np.uint8)]
-    assert sum(5 * tcore._pixels(i) for i in imgs) == \
-        5 * (600 + 63 + 20)
+def test_a_chunk_is_made_when_the_loop_reaches_it(rng):
+    """17 same-shape photos: FUNNEL_CHUNK's chunks, and when photo i's
+    output is yielded only the forwards of the chunks up to its own have
+    run, so at most one chunk's maps wait."""
+    n = 2 * tcore.FUNNEL_CHUNK + 1
+    imgs = _tagged(rng, [(8, 12)] * n)
+    pred = _Counting()
+    ran = []
+    for i, typ, _ in tcore.core_generation_funnel(
+            None, imgs, None, None, TOptions(compute_device="CPU"),
+            predictor_cache=_FixedCache(pred)):
+        assert typ == "depth"
+        ran.append((i, len(pred.forwards)))
+    assert ran == [(i, i // tcore.FUNNEL_CHUNK + 1) for i in range(n)]
+    assert [len(f) for f in pred.forwards] == \
+        [tcore.FUNNEL_CHUNK, tcore.FUNNEL_CHUNK, 1]
+    assert [i for f in pred.forwards for i in f] == list(range(n))
 
 
 class _Oom:

@@ -117,10 +117,10 @@ def _funnel_spans(pred, n, **opts):
 
 
 def test_one_upload_u8_per_device_forward(tiny, monkeypatch):
-    """The pre-pass (chunks of 2: two forwards of 3 photos) and the serial
-    path open one upload_u8 per forward; the raw map's host path
+    """The funnel's chunks (of 2: three photos make two forwards, one photo
+    one) open one upload_u8 per forward; the raw map's host path
     (depth_prediction) opens none."""
-    monkeypatch.setenv("DEPTHMAP_FUNNEL_BATCH", "2")
+    monkeypatch.setattr(core, "FUNNEL_CHUNK", 2)
     names = _funnel_spans(tiny, 3)
     assert names.count("upload") == names.count("upload_u8") == 2
     names = _funnel_spans(tiny, 1)
@@ -131,7 +131,7 @@ def test_one_upload_u8_per_device_forward(tiny, monkeypatch):
 
 def test_a_host_pipeline_gets_the_host_division(tiny, monkeypatch):
     """A host pipeline (Marigold's route) given uint8 photos through the
-    funnel takes the device route: one upload_u8 for the pre-pass's chunk,
+    funnel takes the device route: one upload_u8 for the funnel's chunk,
     and each photo's (1, 3, H, W) net input equal bit for bit to the
     host's f32 /255 (the processing size here is the photo's own, where
     the cubic resize is the identity)."""

@@ -251,9 +251,9 @@ def test_stage_opens_a_profiler_span():
 
 
 def test_funnel_spans_equal_jax(rng):
-    """The funnel's spans: depth_predict per predicted image of the serial
-    loop and stereo per image, the same names and counts as the JAX
-    funnel's."""
+    """The funnel's spans: a depth_batch per predicted image of two
+    shapes where the JAX funnel has a depth_predict, and a stereo per
+    image, as many as the JAX funnel's."""
     from depthmap_tpu.options import GenerationOptions as JOptions
     from depthmap_tpu.pipeline import core as jcore
     from depthmap_tpu.utils import profiling as JP
@@ -274,8 +274,10 @@ def test_funnel_spans_equal_jax(rng):
          _FixedCache(tp))
     counts = {k: len(v) for k, v in P.timings().items()}
     want = {k: len(v) for k, v in JP.timings().items()}
-    assert {k: counts.get(k) for k in want} == want
     assert want == {"depth_predict": 2, "stereo": 2}
+    assert (counts.get("depth_batch"), counts.get("stereo")) == \
+        (want["depth_predict"], want["stereo"])
+    assert "depth_predict" not in counts
 
 
 def test_stage_enters_no_range_without_a_profiler(monkeypatch):
@@ -381,26 +383,24 @@ def test_spans_from_many_threads_lose_nothing():
             assert s.parent == -1
 
 
-# what each span of a funnel call holds: the pre-pass chunk and the serial
-# photo hold the predictor's four spans, the upload of uint8 photos its
-# upload_u8, a photo's stereo its own
+# what each span of a funnel call holds: a chunk holds the predictor's
+# four spans, the upload of uint8 photos its upload_u8, a photo's stereo
+# its own
 FUNNEL_SPANS = {"depth_batch": ["upload", "forward", "finalize", "download"],
-                "depth_predict": ["upload", "forward", "finalize",
-                                  "download"],
                 "upload": ["upload_u8"],
                 "stereo": ["stereo_upload", "stereo_eye", "stereo_eye",
                            "stereo_download"]}
 
 
 def _funnel_spans(monkeypatch, rng):
-    """Two funnel calls on three same-shape photos (the pre-pass, in
-    chunks of 2) and one odd-shaped photo (the serial loop), with stereo:
-    each call's span records."""
+    """Two funnel calls on three same-shape photos (chunks of 2 and 1)
+    and one odd-shaped photo (a chunk of 1), with stereo: each call's span
+    records."""
     from depthmap_tpu_torch.options import GenerationOptions as TOptions
     from depthmap_tpu_torch.pipeline import core as tcore
     from tests.test_torch_port_funnel import (_FixedCache, _images,
                                               _predictors, _run)
-    monkeypatch.setenv("DEPTHMAP_FUNNEL_BATCH", "2")
+    monkeypatch.setattr(tcore, "FUNNEL_CHUNK", 2)
     _, tp = _predictors()
     imgs = _images(rng, [(48, 80), (48, 80), (48, 80), (40, 40)])
     inp = TOptions(compute_device="CPU", model_type=1, net_width=64,
@@ -416,21 +416,21 @@ def _funnel_spans(monkeypatch, rng):
 
 
 def test_funnel_span_tree(monkeypatch, rng):
-    """Per chunk a prepare and a depth_batch over upload (over its
-    upload_u8: the photos are uint8), forward, finalize and download; per
-    serial photo a prepare and a depth_predict over the same four; per
-    photo a stereo over its upload, two eyes and
-    its download; each child inside its parent; one call identifier a
-    funnel call."""
+    """Per chunk, when the loop reaches its first photo, a prepare and a
+    depth_batch over upload (over its upload_u8: the photos are uint8),
+    forward, finalize and download; per photo a stereo over its upload,
+    two eyes and its download; each child inside its parent; one call
+    identifier a funnel call."""
     calls = _funnel_spans(monkeypatch, rng)
     for records in calls:
         by_id = {s.id: s for s in records}
         top = [s.name for s in records if s.parent == -1]
-        assert top == ["prepare",                  # the to_rgb loop
-                       "prepare", "depth_batch",   # chunk of 2
-                       "prepare", "depth_batch",   # chunk of 1
-                       "stereo", "stereo", "stereo",
-                       "prepare", "depth_predict", "stereo"]
+        assert top == ["prepare", "depth_batch",   # photos 0 and 1
+                       "stereo", "stereo",
+                       "prepare", "depth_batch",   # photo 2
+                       "stereo",
+                       "prepare", "depth_batch",   # the odd shape
+                       "stereo"]
         for s in records:
             children = [c.name for c in records if c.parent == s.id]
             assert children == FUNNEL_SPANS.get(s.name, []), s.name
@@ -453,4 +453,4 @@ def test_funnel_spans_are_profiler_annotations(monkeypatch, rng, tmp_path):
     seen = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     want = {"prepare"} | set(FUNNEL_SPANS) | {
         n for names in FUNNEL_SPANS.values() for n in names}
-    assert len(want) == 12 and want <= seen, want - seen
+    assert len(want) == 11 and want <= seen, want - seen

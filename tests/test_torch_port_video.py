@@ -3,11 +3,12 @@
 The stdlib Y16 AVI writer byte for byte (fractional fps too) and each
 reader on the other's file; ``process_predictions`` ("none" and
 "experimental") exactly; ``frames_to_video``'s depth and colour routes
-byte for byte; ``predict_batch_stream`` equal to ``predict_batch`` chunk
-by chunk; pass 1 (``_predict_video_depths``, 10 frames in chunks of 4, a
-tail of 2 that the port runs as its own batch where the JAX package pads
-it) on the small BEiT of tests/test_torch_port_funnel.py, f32, to 1e-3 of
-the range; ``gen_video`` end to end on a directory of 6 PNG frames: the
+byte for byte; pass 1's uint8 chunks (one ``upload_u8`` each) equal to
+``predict_batch`` on the host's f32 /255 stacks bit for bit; pass 1
+(``_predict_video_depths``, 10 frames in chunks of 4, a tail of 2 that
+the port runs as its own batch where the JAX package pads it) on the
+small BEiT of tests/test_torch_port_funnel.py, f32, to 1e-3 of the range;
+``gen_video`` end to end on a directory of 6 PNG frames: the
 JAX output's file names and depth frames within 1 count of 16 bits; the
 CLI's ``--video`` on the CPU.
 """
@@ -100,14 +101,29 @@ def test_frames_to_video_routes_equal_jax(rng, tmp_path):
     assert open(got[0], "rb").read() == open(want[0], "rb").read()
 
 
-def test_predict_batch_stream_equals_predict_batch(rng, predictors):
+def test_pass1_sends_uint8_chunks(rng, predictors):
+    """10 frames in the default chunks (FUNNEL_CHUNK): one upload_u8 a
+    chunk, and the maps equal predict_batch's on the f32 /255 stacks bit
+    for bit."""
+    from depthmap_tpu_torch.pipeline.core import FUNNEL_CHUNK
+    from depthmap_tpu_torch.utils import profiling
     _, tp = predictors
-    stacks = [np.stack(_images(rng, [(32, 48)] * n)).astype(np.float32)
-              / 255.0 for n in (3, 1)]
-    got = list(tp.predict_batch_stream(iter(stacks), 64, 64))
-    assert len(got) == 2
-    for g, s in zip(got, stacks):
-        np.testing.assert_array_equal(g, tp.predict_batch(s, 64, 64))
+    arrays = _images(rng, [(32, 48)] * 10)
+    opts = TOptions(compute_device="CPU", model_type=1, net_width=64,
+                    net_height=64)
+    profiling.reset()
+    got = tvm._predict_video_depths([Image.fromarray(a) for a in arrays],
+                                    opts, _FixedCache(tp))
+    names = [s.name for s in profiling.spans()]
+    chunks = [np.stack(arrays[s:s + FUNNEL_CHUNK]).astype(np.float32) / 255.0
+              for s in range(0, len(arrays), FUNNEL_CHUNK)]
+    assert len(chunks) == 2
+    assert names.count("upload") == names.count("upload_u8") == len(chunks)
+    want = np.concatenate([tp.predict_batch(c, 64, 64) for c in chunks])
+    if tp.raw_prediction_invert:
+        want = -want
+    assert len(got) == len(want) == 10
+    np.testing.assert_array_equal(np.stack(got), want)
 
 
 def test_pass1_matches_jax(rng, predictors):
