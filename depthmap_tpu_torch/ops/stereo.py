@@ -8,6 +8,12 @@ runs "naive_interpolating" through a host C++ fill; the port runs its
 single-pass version, which gives the same bytes (the note of
 ``_fill_naive_interpolating``).  Every warp function takes any leading
 batch axes: images (..., H, W, C), depth (..., H, W).
+
+``create_stereoimages`` takes arrays or tensors and returns arrays, its
+copies blocking; ``stereoimages_to_host`` queues the same work on a photo
+in host memory and a map already on the device, and its results come down
+through pinned memory without blocking (``HostCopies``): the funnel's
+route for the photos it predicted.
 """
 from __future__ import annotations
 
@@ -220,28 +226,22 @@ def overlap_red_cyan(im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
     return torch.stack([im1[..., 0], im2[..., 1], im2[..., 2]], dim=-1)
 
 
-def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
-                        modes: Sequence[str] | str | None = None,
-                        stereo_balance=0.0, stereo_offset_exponent=1.0,
-                        fill_technique="polylines_sharp",
-                        device=None) -> List[np.ndarray]:
-    """Returns uint8 numpy arrays, one per mode.  ``device`` defaults to
-    the depth map's device when it is a tensor, else to the card ("cuda",
-    which raises without CUDA); the CPU runs only when asked for."""
+def _mode_list(modes) -> List[str]:
     if modes is None:
-        modes = ["left-right"]
-    if not isinstance(modes, (list, tuple)):
-        modes = [modes]
+        return ["left-right"]
+    return list(modes) if isinstance(modes, (list, tuple)) else [modes]
+
+
+def stereo_results(image: torch.Tensor, depth: torch.Tensor, divergence,
+                   separation, modes: Sequence[str] | str | None,
+                   stereo_balance, stereo_offset_exponent,
+                   fill_technique) -> List[torch.Tensor]:
+    """``create_stereoimages``'s results as tensors on the device of the
+    photo (H, W, C) and its map (H, W), each eye in a ``stereo_eye``
+    span; no eye is made when no mode is asked for."""
+    modes = _mode_list(modes)
     if len(modes) == 0:
         return []
-    if device is None:
-        device = depthmap.device if isinstance(depthmap, torch.Tensor) \
-            else "cuda"
-    device = resolve_device(device)
-    with stage("stereo_upload"):
-        image = torch.as_tensor(np.asarray(original_image), device=device)
-        depth = torch.as_tensor(np.asarray(depthmap) if not isinstance(
-            depthmap, torch.Tensor) else depthmap, device=device)
     balance = (stereo_balance + 1) / 2
     left_eye = right_eye = image
     if balance >= 0.001:
@@ -275,5 +275,85 @@ def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
             results.append(overlap_red_cyan(right_eye, left_eye))
         else:
             raise ValueError("Unknown mode")
+    return results
+
+
+def create_stereoimages(original_image, depthmap, divergence, separation=0.0,
+                        modes: Sequence[str] | str | None = None,
+                        stereo_balance=0.0, stereo_offset_exponent=1.0,
+                        fill_technique="polylines_sharp",
+                        device=None) -> List[np.ndarray]:
+    """Returns uint8 numpy arrays, one per mode.  The photo and the map are
+    arrays or tensors; ``device`` defaults to the depth map's device when
+    it is a tensor, else to the card ("cuda", which raises without CUDA);
+    the CPU runs only when asked for."""
+    modes = _mode_list(modes)
+    if len(modes) == 0:
+        return []
+    if device is None:
+        device = depthmap.device if isinstance(depthmap, torch.Tensor) \
+            else "cuda"
+    device = resolve_device(device)
+    with stage("stereo_upload"):
+        image, depth = (torch.as_tensor(
+            x if isinstance(x, torch.Tensor) else np.asarray(x),
+            device=device) for x in (original_image, depthmap))
+    results = stereo_results(image, depth, divergence, separation, modes,
+                             stereo_balance, stereo_offset_exponent,
+                             fill_technique)
     with stage("stereo_download"):
         return [r.cpu().numpy() for r in results]
+
+
+class HostCopies:
+    """Tensors on their way to the host.  On a card each is copied without
+    blocking into a pinned block of its own from torch's caching host
+    allocator, on a side stream that first waits for the current one, so
+    the copies overlap the work queued after them; a tensor's device
+    memory is reused only once its copy is done (``record_stream``), and a
+    block only once every array viewing it is gone.  CPU tensors stay as
+    they are."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._event = None
+        self._tensors = list(tensors)
+        if not self._tensors or not self._tensors[0].is_cuda:
+            return
+        dev = self._tensors[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        blocks = []
+        with torch.cuda.stream(side):
+            for t in self._tensors:
+                block = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                block.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                blocks.append(block)
+            self._event = torch.cuda.Event()
+            self._event.record(side)
+        self._tensors = blocks
+
+    def arrays(self) -> List[np.ndarray]:
+        """The tensors as numpy arrays, once their copies are done (the
+        wait in a ``stereo_download`` span)."""
+        with stage("stereo_download"):
+            if self._event is not None:
+                self._event.synchronize()
+            return [t.numpy() for t in self._tensors]
+
+
+def stereoimages_to_host(photo: torch.Tensor, depth: torch.Tensor,
+                         divergence, separation=0.0,
+                         modes: Sequence[str] | str | None = None,
+                         stereo_balance=0.0, stereo_offset_exponent=1.0,
+                         fill_technique="polylines_sharp") -> HostCopies:
+    """``create_stereoimages`` of a photo on the host (pinned memory: it
+    crosses without blocking) and its map already on a device, queued:
+    the photo goes to the map's device in a ``stereo_upload`` span, the
+    results come back as ``HostCopies``, and nothing waits for the
+    device."""
+    with stage("stereo_upload"):
+        image = photo.to(depth.device, non_blocking=True)
+    return HostCopies(stereo_results(image, depth, divergence, separation,
+                                     modes, stereo_balance,
+                                     stereo_offset_exponent, fill_technique))

@@ -49,7 +49,8 @@ from depthmap_tpu_torch.models.build import is_host_pipeline
 from depthmap_tpu_torch.ops import numerics
 from depthmap_tpu_torch.ops.heatmap import colorize
 from depthmap_tpu_torch.ops.normalmap import create_normalmap
-from depthmap_tpu_torch.ops.stereo import create_stereoimages
+from depthmap_tpu_torch.ops.stereo import (create_stereoimages,
+                                           stereoimages_to_host)
 from depthmap_tpu_torch.options import GenerationOptions
 from depthmap_tpu_torch.pipeline.depth import DepthPredictor, to_host
 from depthmap_tpu_torch.registry import resolve_model_type
@@ -256,10 +257,13 @@ def _chunk_plan(images, depthmaps) -> Dict[int, List[int]]:
     return plan
 
 
-def _depth_chunk(predictor, inp, call, images, members
-                 ) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+def _depth_chunk(predictor, inp, call, images, members, on_card: bool
+                 ) -> Dict[int, tuple]:
     """One chunk's photos as RGB arrays and their uint16 maps, finalized on
-    the predictor's device in one forward: input index -> (RGB, map)."""
+    the predictor's device in one forward: input index -> (RGB, map,
+    card).  With ``on_card``, card is (the photo on the host, its map on
+    the device) for stereo: a uint8 photo's view of the buffer it crossed
+    from (pinned on a card), any other photo as it is; else None."""
     with stage("prepare", call):
         rgbs = [to_rgb(images[i]) for i in members]
         # uint8 photos go as they are: the predictor sends their bytes and
@@ -268,12 +272,17 @@ def _depth_chunk(predictor, inp, call, images, members
             np.stack(rgbs).astype(np.float32) / 255.0
     h, w = rgbs[0].shape[:2]
     net_w, net_h = _funnel_net_size(inp, w, h)
+    sent: Optional[list] = [] if on_card else None
     with _oom_advice(inp), stage("depth_batch", call):
-        maps = to_host(predictor.finalized_batch(
+        on_device = predictor.finalized_batch(
             photos, net_w, net_h, clip=inp.clipdepth,
             clip_mode=inp.clipdepth_mode, clip_far=inp.clipdepth_far,
-            clip_near=inp.clipdepth_near))
-    return dict(zip(members, zip(rgbs, maps)))
+            clip_near=inp.clipdepth_near, keep=sent)
+        maps = to_host(on_device)
+    # ``sent`` stays empty where the photos crossed as f32
+    cards = zip(sent or map(torch.as_tensor, rgbs), on_device) if on_card \
+        else [None] * len(rgbs)
+    return dict(zip(members, zip(rgbs, maps, cards)))
 
 
 def _convert_to_i16_host(out: np.ndarray) -> np.ndarray:
@@ -339,19 +348,26 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
     # mesh, and Boost makes it there; every other predicted photo's map is
     # finalized on the device with its chunk's, made when the loop first
     # reaches one of its photos and held until each photo is yielded.
+    # Stereo takes such a photo's map where it is, on the device (unless
+    # rembg masks the host's copy), and its photo from the buffer it
+    # crossed from; photo i + 1's stereo is queued before photo i's
+    # results are waited for (``pending``).
     raw_to_host = inp.do_output_depth_prediction or inp.gen_simple_mesh or \
         inp.boost
     plan = {} if raw_to_host else _chunk_plan(inputimages, inputdepthmaps)
-    made: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    on_card = inp.gen_stereo and not inp.gen_rembg
+    made: Dict[int, tuple] = {}
+    pending: Dict[int, Any] = {}
     inpaint_imgs: List[np.ndarray] = []
     inpaint_depths: List[np.ndarray] = []
     for count, image in enumerate(inputimages):
         depthi = None      # the map the simple mesh is made from
+        card = None        # (photo on the host, map on the device)
         if count in plan:
             if count not in made:
                 made.update(_depth_chunk(predictor, inp, call, inputimages,
-                                         plan[count]))
-            img, img_output = made.pop(count)
+                                         plan[count], on_card))
+            img, img_output, card = made.pop(count)
         elif inputdepthmaps[count] is not None:
             img = to_rgb(image)
             h, w = img.shape[:2]
@@ -418,12 +434,22 @@ def core_generation_funnel(outpath: Optional[str], inputimages: List,
                 yield count, "depth", img_depth
 
         if inp.gen_stereo:
+            stereo_args = (inp.stereo_divergence, inp.stereo_separation,
+                           inp.stereo_modes, inp.stereo_balance,
+                           inp.stereo_offset_exponent, inp.stereo_fill_algo)
             with stage("stereo", call):
-                stereoimages = create_stereoimages(
-                    img, img_output, inp.stereo_divergence,
-                    inp.stereo_separation, inp.stereo_modes,
-                    inp.stereo_balance, inp.stereo_offset_exponent,
-                    inp.stereo_fill_algo, device=dev)
+                if card is None:
+                    stereoimages = create_stereoimages(
+                        img, img_output, *stereo_args, device=dev)
+                else:
+                    with stage("stereo_on_card", call):
+                        copies = pending.pop(count, None) or \
+                            stereoimages_to_host(*card, *stereo_args)
+                        ahead = made.get(count + 1)
+                        if ahead is not None and ahead[2] is not None:
+                            pending[count + 1] = stereoimages_to_host(
+                                *ahead[2], *stereo_args)
+                        stereoimages = copies.arrays()
             for c, simg in enumerate(stereoimages):
                 yield count, inp.stereo_modes[c], simg
 

@@ -284,41 +284,47 @@ class DepthPredictor:
                 maps.append(cv2_resize_cubic_t(depth, (w, h)))
         return torch.cat(maps)
 
-    def _raw_batch(self, imgs01, net_w: int, net_h: int) -> torch.Tensor:
+    def _raw_batch(self, imgs01, net_w: int, net_h: int,
+                   keep: Optional[list] = None) -> torch.Tensor:
         """(N, H, W) raw maps on the device, the stack split over the
         devices where their number divides it; a host pipeline's one
         photo at a time, its members split over them instead."""
-        batch = self._to_device(imgs01)
+        batch = self._to_device(imgs01, keep)
         with stage("forward"):
             if self.bundle.host_pipeline:
                 return self._pipeline_maps(batch, net_w)
             return split_run(lambda x: self._forward(x, net_w, net_h),
                              self.devices, batch)
 
-    def _to_device(self, imgs) -> torch.Tensor:
+    def _to_device(self, imgs, keep: Optional[list] = None
+                   ) -> torch.Tensor:
         """A same-shape (N, H, W, 3) stack, or a list of (H, W, 3) photos,
         -> (N, H, W, 3) f32 RGB in [0, 1] on the predictor's device.  The
         route follows the dtype: floating input (in [0, 1]) crosses as
         f32; uint8 (0-255) in an ``upload_u8`` span crosses as its bytes,
         on a card copied once into pinned memory and sent without
         blocking, and becomes ``u8_to_unit``'s f32 there, the uint8 copy
-        dropped before the forward."""
+        dropped before the forward.  ``keep``, a list, receives each uint8
+        photo's host copy (a view of the pinned buffer on a card), for a
+        caller that sends the photos again."""
         with stage("upload"):
             if not is_u8(imgs):
                 return torch.as_tensor(np.asarray(imgs, np.float32)).to(
                     self.device, non_blocking=True)
             with stage("upload_u8"):
                 if self.device.type != "cuda":
-                    return u8_to_unit(torch.from_numpy(np.array(imgs)).to(
-                        self.device))
-                host = torch.empty((len(imgs),) + np.shape(imgs[0]),
-                                   dtype=torch.uint8, pin_memory=True)
-                for i, img in enumerate(imgs):
-                    # torch's copy runs on its intra-op threads (4x numpy's
-                    # one core); a read-only array is copied first, as
-                    # torch warns on one
-                    host[i].copy_(torch.from_numpy(
-                        np.require(img, requirements="W")))
+                    host = torch.from_numpy(np.array(imgs))
+                else:
+                    host = torch.empty((len(imgs),) + np.shape(imgs[0]),
+                                       dtype=torch.uint8, pin_memory=True)
+                    for i, img in enumerate(imgs):
+                        # torch's copy runs on its intra-op threads (4x
+                        # numpy's one core); a read-only array is copied
+                        # first, as torch warns on one
+                        host[i].copy_(torch.from_numpy(
+                            np.require(img, requirements="W")))
+                if keep is not None:
+                    keep.extend(host)
                 return u8_to_unit(host.to(self.device, non_blocking=True))
 
     def _default_size(self, net_w, net_h):
@@ -343,12 +349,13 @@ class DepthPredictor:
 
     def finalized_batch(self, imgs01, net_w: int, net_h: int, *,
                         clip: bool = False, clip_mode: str = "Range",
-                        clip_far: float = 0.0,
-                        clip_near: float = 1.0) -> torch.Tensor:
+                        clip_far: float = 0.0, clip_near: float = 1.0,
+                        keep: Optional[list] = None) -> torch.Tensor:
         """A same-shape (N, H, W, 3) stack or list of photos (float in [0,
         1] or uint8) -> (N, H, W) uint16 on the device, one forward, each
-        frame finalized against its own range."""
-        raw = self._raw_batch(imgs01, net_w, net_h)
+        frame finalized against its own range; ``keep`` as
+        ``_to_device``'s."""
+        raw = self._raw_batch(imgs01, net_w, net_h, keep)
         with stage("finalize"):
             return numerics.finalize_i16(
                 raw, invert=self.raw_prediction_invert, clip=bool(clip),

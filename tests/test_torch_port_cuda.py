@@ -571,6 +571,63 @@ def test_warp_fills_card_equals_cpu(fill, div, sep, exponent):
 
 
 @pytest.mark.cuda
+def test_funnel_stereo_on_the_card_equals_the_host_route():
+    """A chunk of two 1080p photos with polylines stereo through the funnel
+    on the card (a small ViT DPT, f32): the photos sent again from the
+    pinned staging, the maps kept on the card, the results down through
+    pinned memory.  Each output equals create_stereoimages on the yielded
+    numpy photo and map, and job 1's arrays are unchanged after job 2 ran
+    on other photos (no yielded array views a reused buffer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from depthmap_tpu_torch.models.build import build_model
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.pipeline import core
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    from depthmap_tpu_torch.utils import profiling
+    with torch.device("meta"):
+        bundle = build_model(3)
+    module = init_random_(_small_zoo_model("vit"), seed=2)
+    pred = DepthPredictor(3, state_dict=module.state_dict(),
+                          compute_dtype=torch.float32, device="cuda",
+                          bundle=dataclasses.replace(bundle, module=module))
+
+    class Cache(core.PredictorCache):
+        def get(self, model_type, tiling_mode=False, **kw):
+            return pred
+
+    modes = ["left-right", "red-cyan-anaglyph"]
+    opts = dict(compute_device="GPU", model_type=3, net_width=384,
+                net_height=384, gen_stereo=True, stereo_modes=modes,
+                stereo_fill_algo="polylines_sharp", stereo_divergence=2.5)
+    rng = np.random.default_rng(11)
+    jobs, outs, frozen = [], [], None
+    for _ in range(2):
+        imgs = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+                for _ in range(2)]
+        profiling.reset()
+        out = {(i, t): r for i, t, r in core.core_generation_funnel(
+            None, imgs, None, None, opts, predictor_cache=Cache())}
+        spans = profiling.timings()
+        assert len(spans["stereo"]) == len(spans["stereo_on_card"]) == 2
+        jobs.append(imgs)
+        outs.append(out)
+        if frozen is None:
+            frozen = {k: v.copy() for k, v in out.items()}
+    for k, v in frozen.items():
+        assert np.array_equal(outs[0][k], v), k
+    for imgs, out in zip(jobs, outs):
+        for i, img in enumerate(imgs):
+            want = S.create_stereoimages(img, out[(i, "depth")], 2.5, 0.0,
+                                         modes, 0.0, 1.0, "polylines_sharp",
+                                         device="cuda")
+            for mode, w in zip(modes, want):
+                assert out[(i, mode)].dtype == np.uint8
+                assert np.array_equal(out[(i, mode)], w), (i, mode)
+
+
+@pytest.mark.cuda
 def test_small_depth_anything_card_matches_cpu():
     """A small Depth Anything v2 (embed 128, 2 heads of D = 64, depth 4,
     training size 56) through the predictor at net 70 (a 5 x 9 grid: the

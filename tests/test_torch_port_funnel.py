@@ -168,6 +168,42 @@ def test_batched_prepass_equals_serial(rng, monkeypatch):
         assert d.max() <= 2, d.max()
 
 
+def test_stereo_runs_on_the_predicted_chunk(rng):
+    """Stereo of the predicted photos runs on the chunk the forward left
+    (one ``stereo_on_card`` span in each photo's ``stereo`` span); the
+    custom-map photo takes the host route.  Both give create_stereoimages'
+    bytes on the yielded photo and map."""
+    from depthmap_tpu_torch.models.weights import init_random_
+    from depthmap_tpu_torch.ops.stereo import create_stereoimages
+    from depthmap_tpu_torch.pipeline.depth import DepthPredictor
+    from depthmap_tpu_torch.utils import profiling
+    bundle = torch_small_bundle()
+    tp = DepthPredictor(1, state_dict=init_random_(bundle.module,
+                                                   3).state_dict(),
+                        compute_dtype=torch.float32, device="cpu",
+                        bundle=bundle)
+    imgs = _images(rng, [(48, 80), (48, 80), (40, 40)])
+    modes = ["left-right", "red-cyan-anaglyph", "left-only"]
+    inp = TOptions(compute_device="CPU", model_type=1, net_width=64,
+                   net_height=64, gen_stereo=True, stereo_modes=modes,
+                   stereo_balance=0.2)
+    profiling.reset()
+    got = _run(tcore.core_generation_funnel, imgs, [None, None,
+                                                    rng.random((40, 40))],
+               inp, _FixedCache(tp))
+    spans = profiling.timings()
+    assert len(spans["stereo"]) == 3 and len(spans["stereo_on_card"]) == 2
+    for i, (idx, depth) in enumerate(got["depth"]):
+        assert idx == i and np.ptp(depth) > 1000     # live maps
+        want = create_stereoimages(imgs[i], depth, inp.stereo_divergence,
+                                   0.0, modes, 0.2, 1.0, inp.stereo_fill_algo,
+                                   device="cpu")
+        for mode, wnt in zip(modes, want):
+            assert got[mode][i][0] == i
+            np.testing.assert_array_equal(got[mode][i][1], wnt,
+                                          err_msg=mode)
+
+
 def test_gpu_device_needs_cuda(rng):
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA error path")

@@ -171,3 +171,26 @@ def test_unknown_fill_raises():
     with pytest.raises(ValueError, match="Unknown warp fill"):
         T.apply_stereo_divergence_naive(img, depth.float(), 1.0, 0.0, 1.0,
                                         "polylines_sharp")
+
+
+@pytest.mark.parametrize("fill", T.FILL_TECHNIQUES)
+def test_tensor_inputs_equal_the_numpy_route(rng, fill):
+    """create_stereoimages on the photo and the uint16 map given as tensors,
+    and stereoimages_to_host (the photo a host tensor, the map on the
+    device, the results through HostCopies), give the numpy route's bytes
+    in all 8 modes."""
+    h, w = 8, 64
+    img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    depth = (rng.random((h, w)) * 65535).astype(np.uint16)
+    modes = list(T.STEREO_MODES)
+    args = (2.5, 0.3, modes, 0.2, 1.0, fill)
+    want = T.create_stereoimages(img, depth, *args, device="cpu")
+    tensors = T.create_stereoimages(torch.from_numpy(img),
+                                    torch.from_numpy(depth), *args)
+    queued = T.stereoimages_to_host(torch.from_numpy(img),
+                                    torch.from_numpy(depth), *args).arrays()
+    assert len(want) == len(tensors) == len(queued) == 8
+    for m, wnt, a, b in zip(modes, want, tensors, queued):
+        assert a.dtype == b.dtype == np.uint8, m
+        np.testing.assert_array_equal(a, wnt, err_msg=m)
+        np.testing.assert_array_equal(b, wnt, err_msg=m)

@@ -384,12 +384,17 @@ def test_spans_from_many_threads_lose_nothing():
 
 
 # what each span of a funnel call holds: a chunk holds the predictor's
-# four spans, the upload of uint8 photos its upload_u8, a photo's stereo
-# its own
+# four spans, the upload of uint8 photos its upload_u8, a predicted
+# photo's stereo its stereo_on_card
 FUNNEL_SPANS = {"depth_batch": ["upload", "forward", "finalize", "download"],
                 "upload": ["upload_u8"],
-                "stereo": ["stereo_upload", "stereo_eye", "stereo_eye",
-                           "stereo_download"]}
+                "stereo": ["stereo_on_card"]}
+# a photo's stereo_on_card, in photo order: its own photo's upload and
+# eyes unless they were queued ahead, the next photo's where it is in a
+# chunk already made, then the wait for its own results
+EYES = ["stereo_upload", "stereo_eye", "stereo_eye"]
+ON_CARD = [EYES + EYES + ["stereo_download"], ["stereo_download"],
+           EYES + ["stereo_download"], EYES + ["stereo_download"]]
 
 
 def _funnel_spans(monkeypatch, rng):
@@ -418,9 +423,10 @@ def _funnel_spans(monkeypatch, rng):
 def test_funnel_span_tree(monkeypatch, rng):
     """Per chunk, when the loop reaches its first photo, a prepare and a
     depth_batch over upload (over its upload_u8: the photos are uint8),
-    forward, finalize and download; per photo a stereo over its upload,
-    two eyes and its download; each child inside its parent; one call
-    identifier a funnel call."""
+    forward, finalize and download; per photo a stereo over its
+    stereo_on_card (ON_CARD: photo 1's upload and eyes queued inside
+    photo 0's); each child inside its parent; one call identifier a
+    funnel call."""
     calls = _funnel_spans(monkeypatch, rng)
     for records in calls:
         by_id = {s.id: s for s in records}
@@ -431,9 +437,12 @@ def test_funnel_span_tree(monkeypatch, rng):
                        "stereo",
                        "prepare", "depth_batch",   # the odd shape
                        "stereo"]
+        on_card = iter(ON_CARD)
         for s in records:
             children = [c.name for c in records if c.parent == s.id]
-            assert children == FUNNEL_SPANS.get(s.name, []), s.name
+            want = next(on_card) if s.name == "stereo_on_card" else \
+                FUNNEL_SPANS.get(s.name, [])
+            assert children == want, s.name
             if s.parent != -1:
                 p = by_id[s.parent]
                 assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
@@ -452,5 +461,6 @@ def test_funnel_spans_are_profiler_annotations(monkeypatch, rng, tmp_path):
         events = json.load(f)["traceEvents"]
     seen = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     want = {"prepare"} | set(FUNNEL_SPANS) | {
-        n for names in FUNNEL_SPANS.values() for n in names}
-    assert len(want) == 11 and want <= seen, want - seen
+        n for names in FUNNEL_SPANS.values() for n in names} | set(EYES) | \
+        {"stereo_download"}
+    assert len(want) == 12 and want <= seen, want - seen
