@@ -10,17 +10,19 @@ Every module takes NCHW input and offers ``grid_inputs(input_hw, dtype)``
 (what it computes from its parameters for an input size, passed to its
 forward as keywords) and ``head_to_f32()``.  A ``prep_in_model`` module
 (ZoeDepth) takes the image in [0, 1] with ``net_size``, resizes and
-normalizes it itself, returns the map at the input size, and offers
-``net_input_size`` and ``core_to(dtype)``.  ``selective_core`` names the
-JAX package's policy for running such a model's core in another dtype
-than its head (``pipeline.depth.precision`` reads it).  A
-``host_pipeline`` module (Marigold) is a whole pipeline run per image: it
-gives the processing size of an image (``processing_size(h, w, res)``),
-takes the (1, 3, h', w') net input in [0, 1] on its device with its knobs
-and returns the (1, h', w') map there, names its own dtype
-(``pipeline_dtype()``) and loads its own weights (``load_weights(
-weights_dir, seed)``).  ``boost_preprocess`` is the
-preprocess Boost feeds a model where it is not the model's own."""
+normalizes it itself (the photo and its mirror in one batch), runs its
+core once over the batch and its metric head over slices of the copies
+(``models/zoedepth.py HEAD_SLICE_BYTES``), returns the map at the input
+size, and offers ``net_input_size`` and ``core_to(dtype)``.
+``selective_core`` names the JAX package's policy for running such a
+model's core in another dtype than its head (``pipeline.depth.precision``
+reads it).  A ``host_pipeline`` module (Marigold) is a whole pipeline
+run per image: it gives the processing size of an image
+(``processing_size(h, w, res)``), takes the (1, 3, h', w') net input in
+[0, 1] on its device with its knobs and returns the (1, h', w') map
+there, names its own dtype (``pipeline_dtype()``) and loads its own
+weights (``load_weights(weights_dir, seed)``).  ``boost_preprocess`` is
+the preprocess Boost feeds a model where it is not the model's own."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace

@@ -14,9 +14,21 @@ log-binomial table is built on the host (the LogBinomial buffers are not
 kept).
 
 The relative-depth core runs in its parameters' dtype (bf16 on the card
-under the predictor's selective precision); its taps come back as f32 and
-the metric head computes in f32.  The only kernel is K1, in the core's
-BEiT blocks; the router's attention (4 heads of 32) is two einsums.
+under the predictor's selective precision) as one batched forward; its
+taps come back as f32 and the metric head computes in f32 over the batch's
+copies in slices: each slice as many copies as keep the head's
+full-resolution f32 tensors (``ConditionalLogBinomial.fullres_channels``
+a pixel of the net input) under ``HEAD_SLICE_BYTES``.  Every copy is
+computed on its own throughout the head, so a slice's maps are the
+batch's but for the last bits that a convolution's summation order at
+another batch size moves; NK's router still votes once over the whole
+batch.  Spans (``utils/profiling.py stage``): ``zoe_tta`` (the pad, the
+mirror and the resize in; the bicubic back, the crop and the average),
+``zoe_core`` (the BEiT DPT with its taps, and ``conv2`` on the bottleneck
+tap, once over the batch), ``zoe_head`` (one a slice, so the spans count
+the slices) and, for NK, ``zoe_vote``.  The only kernel is K1, in the
+core's BEiT blocks; the router's attention (4 heads of 32) is two
+einsums.
 """
 from __future__ import annotations
 
@@ -31,6 +43,11 @@ import torch.nn.functional as F
 from depthmap_tpu_torch.models.dpt import DPTDepthModel
 from depthmap_tpu_torch.ops.resize import interpolate
 from depthmap_tpu_torch.pipeline.preprocess import resize_get_size
+from depthmap_tpu_torch.utils.profiling import stage
+
+# One slice of the metric head keeps its full-resolution f32 tensors under
+# this many bytes (a 1120 x 1920 net input: one copy a slice)
+HEAD_SLICE_BYTES = 8 << 30
 
 
 def inv_attractor(dx, alpha: float = 300.0, gamma: int = 2):
@@ -169,6 +186,7 @@ class ConditionalLogBinomial(nn.Module):
                  min_temp: float = 0.0212, max_temp: float = 50.0):
         super().__init__()
         self.n_classes = n_classes
+        self.condition_dim = condition_dim
         self.min_temp, self.max_temp = min_temp, max_temp
         # device -> (table, k index) as (1, K, 1, 1) f32, copied to a device
         # once (not buffers: a reduced-dtype cast would round the table)
@@ -179,6 +197,16 @@ class ConditionalLogBinomial(nn.Module):
             nn.GELU(),
             nn.Conv2d(bottleneck, 4, 1),
             nn.Softplus())
+
+    def fullres_channels(self) -> int:
+        """The f32 channels this head and the expectation after it hold a
+        pixel of the net input: the (x, cond) concat, the interpolated
+        condition, the MLP's two hidden maps and its 4 outputs, and five
+        maps of ``n_classes`` (the binomial's terms, its softmax, the
+        interpolated centers and their product)."""
+        mlp_in, hidden = self.mlp[0].in_channels, self.mlp[0].out_channels
+        return mlp_in + self.condition_dim + 2 * hidden + 4 + \
+            5 * self.n_classes
 
     def forward(self, x, cond):
         pt = self.mlp(torch.cat([x, cond], 1))
@@ -347,7 +375,9 @@ class MidasCore(nn.Module):
 
 class _ZoeBase(nn.Module):
     """What ZoeDepth and ZoeDepthNK share: the core, its f32 taps, the
-    bottleneck conv and the bin-embedding projectors."""
+    bottleneck conv, the bin-embedding projectors and the forward: the
+    core once over the batch, then the head (``_head``) over slices of
+    its copies."""
 
     def __init__(self, core: DPTDepthModel, bin_embedding_dim: int,
                  projector_mlp_dim: int):
@@ -361,15 +391,44 @@ class _ZoeBase(nn.Module):
             [Projector(feats, bin_embedding_dim, projector_mlp_dim)
              for _ in range(4)])
 
-    def _features(self, x, grid_inputs):
-        """-> (rel_depth, out_conv_act, btlnck, seed embedding, level
-        embeddings), all f32."""
-        rel_depth, taps = self.core(x, **grid_inputs)
-        out_conv_act, btlnck, *x_blocks = [t.float() for t in taps]
-        btlnck = self.conv2(btlnck)
-        embeddings = [p(xb) for p, xb in zip(self.projectors, x_blocks)]
-        return (rel_depth.float(), out_conv_act, btlnck,
-                self.seed_projector(btlnck), embeddings)
+    def _features(self, taps, btlnck):
+        """A slice's taps and projected bottleneck -> (out_conv_act, seed
+        embedding, level embeddings), all f32."""
+        embeddings = [p(xb.float()) for p, xb in zip(self.projectors,
+                                                     taps[2:])]
+        return (taps[0].float(), self.seed_projector(btlnck), embeddings)
+
+    def head_slices(self, n: int, hw: Tuple[int, int]) -> list:
+        """The slices of a batch of ``n`` copies at a net input of ``hw``
+        that the head runs one at a time: as many copies each as keep the
+        full-resolution f32 tensors of every log-binomial head under
+        HEAD_SLICE_BYTES, one at least."""
+        per_copy = 4 * hw[0] * hw[1] * sum(
+            m.fullres_channels() for m in self.modules()
+            if isinstance(m, ConditionalLogBinomial))
+        step = max(1, HEAD_SLICE_BYTES // per_copy)
+        return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+    def _vote(self, btlnck):
+        """What the head needs of the whole batch (NK's router); None."""
+        return None
+
+    def forward(self, x, **grid_inputs):
+        """(N, 3, H, W) normalized input -> (N, H, W) metric depth: the
+        core and ``conv2`` on its bottleneck tap (small, at 1/32 of the
+        input) in a ``zoe_core`` span, then the subclass's ``_head`` on
+        each slice's relative depth, taps and bottleneck (and ``_vote``'s
+        result) in a ``zoe_head`` span."""
+        with stage("zoe_core"):
+            rel_depth, taps = self.core(x, **grid_inputs)
+            btlnck = self.conv2(taps[1].float())
+        vote = self._vote(btlnck)
+        out = []
+        for s in self.head_slices(x.shape[0], taps[0].shape[2:]):
+            with stage("zoe_head"):
+                out.append(self._head(rel_depth[s], [t[s] for t in taps],
+                                      btlnck[s], vote))
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     def head_to_f32(self) -> None:
         """The metric head in f32 (its weights keep the values they were
@@ -411,13 +470,12 @@ class ZoeDepth(_ZoeBase):
             33, bin_embedding_dim, n_bins, min_temp=min_temp,
             max_temp=max_temp)
 
-    def forward(self, x, **grid_inputs):
-        rel_depth, last, btlnck, seed_emb, embeddings = \
-            self._features(x, grid_inputs)
+    def _head(self, rel_depth, taps, btlnck, vote):
+        last, seed_emb, embeddings = self._features(taps, btlnck)
         b_centers, b_embedding = bins(self.seed_bin_regressor,
                                       self.attractors, btlnck, seed_emb,
                                       embeddings)
-        rel_cond = interpolate(rel_depth[:, None], last.shape[2:],
+        rel_cond = interpolate(rel_depth.float()[:, None], last.shape[2:],
                                "bilinear", True)
         last = torch.cat([last, rel_cond], 1)
         b_embedding = interpolate(b_embedding, last.shape[2:], "bilinear",
@@ -460,12 +518,17 @@ class ZoeDepthNK(_ZoeBase):
         self.mlp_classifier = nn.Sequential(nn.Linear(128, 128), nn.ReLU(),
                                             nn.Linear(128, 2))
 
-    def forward(self, x, **grid_inputs):
-        _, last, btlnck, seed_emb, embeddings = self._features(x,
-                                                               grid_inputs)
-        domain_logits = self.mlp_classifier(self.patch_transformer(btlnck))
-        vote = torch.softmax(domain_logits.sum(0, keepdim=True), -1)
-        use_kitti = vote.argmax(-1)[0] == 1
+    def _vote(self, btlnck):
+        """Whether the whole batch takes the KITTI expert, in a
+        ``zoe_vote`` span."""
+        with stage("zoe_vote"):
+            domain_logits = self.mlp_classifier(
+                self.patch_transformer(btlnck))
+            vote = torch.softmax(domain_logits.sum(0, keepdim=True), -1)
+            return vote.argmax(-1)[0] == 1
+
+    def _head(self, rel_depth, taps, btlnck, use_kitti):
+        last, seed_emb, embeddings = self._features(taps, btlnck)
         out = {}
         for d in DOMAINS:
             b_centers, b_embedding = bins(self.seed_bin_regressors[d],
@@ -520,16 +583,19 @@ class ZoeDepthInference(nn.Module):
         n, _, h, w = x01.shape
         pad_h = int(np.sqrt(h / 2) * 3)
         pad_w = int(np.sqrt(w / 2) * 3)
-        xp = F.pad(x01, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
-        xb = torch.cat([xp, xp.flip(-1)], 0)
         new_h, new_w = self.net_input_size(h, w, net_size, self.img_size)
-        xr = interpolate(xb, (new_h, new_w), "bilinear", True)
-        pred = self.model((xr - 0.5) / 0.5, **grid_inputs)
-        pred = interpolate(pred[:, None].float(), xp.shape[2:], "bicubic",
-                           False)[:, 0]
-        pred = pred[:, pad_h:pred.shape[1] - pad_h,
-                    pad_w:pred.shape[2] - pad_w]
-        return (pred[:n] + pred[n:].flip(-1)) / 2.0
+        with stage("zoe_tta"):
+            xp = F.pad(x01, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+            xr = interpolate(torch.cat([xp, xp.flip(-1)], 0),
+                             (new_h, new_w), "bilinear", True)
+            xr = (xr - 0.5) / 0.5
+        pred = self.model(xr, **grid_inputs)
+        with stage("zoe_tta"):
+            pred = interpolate(pred[:, None].float(), xp.shape[2:],
+                               "bicubic", False)[:, 0]
+            pred = pred[:, pad_h:pred.shape[1] - pad_h,
+                        pad_w:pred.shape[2] - pad_w]
+            return (pred[:n] + pred[n:].flip(-1)) / 2.0
 
 
 def build_zoedepth(variant: str) -> ZoeDepthInference:

@@ -12,6 +12,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# torch's CUDA upsampling kernels refuse an output of more elements than
+# a 32-bit int holds; ``interpolate`` resizes a larger batch a few
+# images at a time (each image is resized on its own either way)
+MAX_RESIZE_ELEMENTS = 2 ** 31 - 1
+
 
 def interpolate(x: torch.Tensor, size, mode: str = "bilinear",
                 align_corners: bool = False, scales=None) -> torch.Tensor:
@@ -30,8 +35,14 @@ def interpolate(x: torch.Tensor, size, mode: str = "bilinear",
         return out
     if tuple(x.shape[-2:]) == (out_h, out_w):
         return x
-    return F.interpolate(x, size=(out_h, out_w), mode=mode,
-                         align_corners=align_corners)
+    per_image = x.shape[1] * out_h * out_w
+    if x.shape[0] * per_image <= MAX_RESIZE_ELEMENTS or x.shape[0] == 1:
+        return F.interpolate(x, size=(out_h, out_w), mode=mode,
+                             align_corners=align_corners)
+    step = max(1, MAX_RESIZE_ELEMENTS // per_image)
+    return torch.cat([F.interpolate(p, size=(out_h, out_w), mode=mode,
+                                    align_corners=align_corners)
+                      for p in x.split(step)])
 
 
 def scale2x(x: torch.Tensor, mode: str = "bilinear",

@@ -118,8 +118,10 @@ def precision(model_type: int, compute_dtype=None,
     DEPTHMAP_COMPUTE_DTYPE is given: "zoe_core_env" runs the core in
     DEPTHMAP_ZOE_CORE_DTYPE (bf16 by default) beside the head;
     "knk_head_f32" runs the core in bf16 and the head in f32 unless
-    DEPTHMAP_ZOE_KNK_HEAD_F32=0 (then bf16 throughout, the reference's
-    whole-model half)."""
+    DEPTHMAP_ZOE_KNK_HEAD_F32=0, which makes the compute dtype bf16 too:
+    the image, the pad and the resize into the net run in bf16, while the
+    metric head stays in f32 (the predictor runs every module's
+    ``head_to_f32()``), unlike the JAX package's whole-model half."""
     explicit = compute_dtype is not None
     compute = _dtype(compute_dtype) if explicit else \
         default_compute_dtype(model_type)

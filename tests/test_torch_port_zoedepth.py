@@ -270,7 +270,7 @@ def _vote_logit(tm, x: np.ndarray) -> float:
     """The router's kitti-minus-nyu logit of each image of ``x``."""
     m = tm.model
     with torch.no_grad():
-        _, _, btlnck, _, _ = m._features(_nchw(x), {})
+        btlnck = m.conv2(m.core(_nchw(x))[1][1].float())
         logits = m.mlp_classifier(m.patch_transformer(btlnck))
     return (logits[:, 1] - logits[:, 0]).numpy()
 
